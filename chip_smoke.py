@@ -6,18 +6,30 @@ Phases, each of which raises (exit code 1) on a failed check:
 
 1. card — the GPU's name and power limit (``nvidia-smi``);
 2. build — compiles ``src/repro_torch/csrc/*.cu`` with nvcc (sm_90a);
-3. kernels — the CUDA FFT and ZIP kernels against their plain torch
-   versions (and ``torch.fft``) on the card, across the main path's
-   shapes, at a fragment's storage offset, and across ``block_rows``;
+3. kernels — every CUDA kernel against its plain torch version on the
+   card: FFT and ZIP across the radar path's shapes, at a fragment's
+   storage offset and across ``block_rows``; flash attention, RG-LRU
+   and mLSTM at the reference's test shapes and tolerances
+   (``tests/test_kernels.py``) and at the widths of the repo's model
+   configs (llama3-8b, recurrentgemma-2b, xlstm-350m), with ``block_q``
+   and ``block_lanes`` bit-identical;
 4. timing — each kernel, its plain version and the one-call PyTorch
-   equivalent at the main path's shapes (CUDA events), beside the
-   least time the card could take (bytes or FP32 operations);
+   equivalent where there is one (CUDA events, device time from
+   ``torch.profiler``), beside the least time the card could take
+   (bytes, or operations at the peak for the input type);
 5. main path — the paper's radar evaluation (2FFT, 2FZF, 3ZIP, RC, PD,
    SAR, and a streaming Session) under the ``reference`` and ``rimms``
    memory policies on ``cuda:0``, checked against numpy's FFT chain and
    the paper's copy counts;
 6. launch counts — every FFT/IFFT and ZIP task placed on a GPU PE in
-   phase 5 launched its kernel exactly once.
+   phase 5 launched its kernel exactly once;
+7. autotuning path — ``repro_torch.rimms.autotune`` on a session with a
+   ``gpu0`` PE over the default ladder, then every tuned op
+   (``fft_pallas``, ``zip_pallas``, ``flash_attention``, ``mlstm``,
+   ``rg_lru``) at every rung dispatched to ``gpu0``: the runtime must
+   pick the table's winner, match the default variant bit for bit and
+   the plain version within tolerance, and launch one kernel per task;
+   then ``python -m repro_torch.calibrate run`` (one rung) and ``show``.
 
 The last two lines are a JSON object of per-kernel records and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -26,21 +38,36 @@ exits nonzero before printing any result.
 
 from __future__ import annotations
 
+import collections
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and
-# FP32 outside the tensor cores.  The bound is stated against these.
+ROOT = Path(__file__).resolve().parent
+
+# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, FP32
+# outside the tensor cores, and the dense tensor-core rates for bf16 and
+# TF32 (float32 inputs).  The bound is stated against these.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+PEAK_BF16_PER_S = 989e12
+PEAK_TF32_PER_S = 495e12
+
+# Model widths from the repo's configs (src/repro/configs): llama3-8b
+# attention, recurrentgemma-2b's RG-LRU width, xlstm-350m's mLSTM heads
+# (m = 2 * d_model / heads).  Batch 1, one 4096-token sequence.
+FLASH_MODEL = dict(B=1, S=4096, Hq=32, Hkv=8, d=128)
+RG_LRU_MODEL = dict(B=1, S=4096, D=2560)
+MLSTM_MODEL = dict(B=1, S=4096, H=4, m=512, chunk=64)
 
 FFT_TIMED_N = (128, 256, 512, 2048)
 ZIP_TIMED_N = (128, 256, 512, 131072)
@@ -216,9 +243,9 @@ def _device_ms(fn, kernel_name: str, iters: int = 50):
     return None
 
 
-def _bound(nbytes: float, flops: float):
+def _bound(nbytes: float, flops: float, peak: float = PEAK_FP32_PER_S):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -260,6 +287,222 @@ def phase_timing(dev):
         }
         rows.append(rec)
         log("[timing] " + json.dumps(rec))
+    return rows
+
+
+# ------------------------------------------ 3. kernels: the tuned ones
+# tests/test_kernels.py's sweeps and tolerances
+FLASH_SWEEP = ((2, 256, 4, 2, 64, 128, 128, torch.float32),
+               (1, 512, 2, 1, 128, 128, 256, torch.float32),
+               (2, 128, 4, 4, 64, 64, 64, torch.bfloat16),
+               (1, 384, 2, 2, 64, 128, 128, torch.float32))
+RG_LRU_SWEEP = ((2, 32, 128), (3, 64, 200), (1, 128, 256))
+MLSTM_SWEEP = ((2, 64, 2, 128, 16), (1, 32, 4, 64, 8), (1, 128, 1, 128, 64))
+
+
+def flash_tol(dtype):
+    return 2e-2 if dtype == torch.bfloat16 else 2e-4
+
+
+class Inputs:
+    """Seeded inputs on the card, drawn as tests/test_kernels.py draws
+    them."""
+
+    def __init__(self, dev, seed):
+        self.dev = dev
+        self.gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal(self, *shape, scale=1.0, dtype=torch.float32):
+        x = torch.randn(*shape, device=self.dev, generator=self.gen)
+        return (x * scale).to(dtype)
+
+    def uniform(self, lo, hi, *shape):
+        u = torch.rand(*shape, device=self.dev, generator=self.gen)
+        return u * (hi - lo) + lo
+
+    def flash(self, B, S, Hq, Hkv, d, dtype):
+        return (self.normal(B, S, Hq, d, dtype=dtype),
+                self.normal(B, S, Hkv, d, dtype=dtype),
+                self.normal(B, S, Hkv, d, dtype=dtype))
+
+    def rg_lru(self, B, S, D, lo=0.3, hi=0.999):
+        return (self.uniform(lo, hi, B, S, D), self.normal(B, S, D),
+                self.normal(B, D))
+
+    def mlstm(self, B, S, H, m):
+        return (self.normal(B, S, H, m), self.normal(B, S, H, m, scale=0.3),
+                self.normal(B, S, H, m), self.uniform(0.1, 0.9, B, S, H),
+                torch.log(self.uniform(0.5, 0.95, B, S, H)))
+
+
+def phase_tuned_kernels(dev):
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.mlstm import mlstm as ML
+    from repro_torch.kernels.mlstm import ops as mlstm_ops
+    from repro_torch.kernels.rg_lru import ops as rg_ops
+    from repro_torch.kernels.rg_lru import rg_lru as RL
+
+    inp = Inputs(dev, 2)
+    errs = {"flash_attention": 0.0, "rg_lru": 0.0, "mlstm": 0.0}
+    m = FLASH_MODEL
+    flash_cases = [(c, True) for c in FLASH_SWEEP]
+    flash_cases.append(((1, 128, 2, 2, 64, 64, 64, torch.float32), False))
+    flash_cases += [((m["B"], m["S"], m["Hq"], m["Hkv"], m["d"], 256, 256,
+                      dt), True) for dt in (torch.bfloat16, torch.float32)]
+    for (B, S, Hq, Hkv, d, bq, bk, dt), causal in flash_cases:
+        q, k, v = inp.flash(B, S, Hq, Hkv, d, dt)
+        got = flash_ops.flash_attention(q, k, v, causal=causal, block_q=bq,
+                                        block_k=bk)
+        torch.cuda.synchronize()
+        tol = flash_tol(dt)
+        what = (f"flash_attention B{B} S{S} Hq{Hq} Hkv{Hkv} d{d} "
+                f"bq{bq} bk{bk} {str(dt)[6:]} "
+                f"{'causal' if causal else 'full'}")
+        e = close(got.float(), FA.flash_attention_plain(
+            q, k, v, causal=causal, block_k=min(bk, S)).float(), tol, tol,
+            what + " vs plain")
+        for bq2 in (128, 256, 512):
+            if not torch.equal(flash_ops.flash_attention(
+                    q, k, v, causal=causal, block_q=bq2, block_k=bk), got):
+                raise AssertionError(f"{what}: block_q={bq2} not "
+                                     f"bit-identical")
+        errs["flash_attention"] = max(errs["flash_attention"], e)
+        log(f"[kernels] {what}: max|err| vs plain {e:.3e} (tol {tol}); "
+            f"block_q 128/256/512 bit-identical")
+
+    m = RG_LRU_MODEL
+    for (B, S, D), (lo, hi) in ([(c, (0.3, 0.999)) for c in RG_LRU_SWEEP]
+                                + [((1, 16, 128), (0.5, 0.9)),
+                                   ((m["B"], m["S"], m["D"]), (0.3, 0.999))]):
+        a, b, h0 = inp.rg_lru(B, S, D, lo, hi)
+        hs, hn = rg_ops.rg_lru_scan(a, b, h0)
+        torch.cuda.synchronize()
+        ws, wn = RL.rg_lru_plain(a, b, h0)
+        what = f"rg_lru B{B} S{S} D{D}"
+        e = max(close(hs, ws, 1e-4, 1e-4, what + " h_seq vs plain"),
+                close(hn, wn, 1e-4, 1e-4, what + " h_final vs plain"))
+        if not (torch.equal(hs, ws) and torch.equal(hn, wn)):
+            raise AssertionError(f"{what}: not bit-equal to the plain loop")
+        for bl in (256, 512):
+            got = rg_ops.rg_lru_scan(a, b, h0, block_lanes=bl)
+            if not (torch.equal(got[0], hs) and torch.equal(got[1], hn)):
+                raise AssertionError(f"{what}: block_lanes={bl} not "
+                                     f"bit-identical")
+        errs["rg_lru"] = max(errs["rg_lru"], e)
+        log(f"[kernels] {what}: max|err| vs plain {e:.3e} (tol 1e-4), "
+            f"bit-equal; block_lanes 128/256/512 bit-identical")
+
+    m = MLSTM_MODEL
+    for B, S, H, hw, c in MLSTM_SWEEP + ((m["B"], m["S"], m["H"], m["m"],
+                                          m["chunk"]),):
+        ins = inp.mlstm(B, S, H, hw)
+        got = mlstm_ops.mlstm_chunkwise(*ins, chunk=c)
+        torch.cuda.synchronize()
+        what = f"mlstm B{B} S{S} H{H} m{hw} chunk{c}"
+        e = close(got, ML.mlstm_plain(*ins, chunk=c), 2e-3, 2e-3,
+                  what + " vs plain")
+        errs["mlstm"] = max(errs["mlstm"], e)
+        log(f"[kernels] {what}: max|err| vs plain {e:.3e} (tol 2e-3)")
+    # the autotuner's chunk candidates: they agree, but not bit for bit
+    ins = inp.mlstm(1, 512, 2, 64)
+    base = mlstm_ops.mlstm_chunkwise(*ins, chunk=64)
+    for c in (32, 128):
+        got = mlstm_ops.mlstm_chunkwise(*ins, chunk=c)
+        e = close(got, ML.mlstm_plain(*ins, chunk=c), 2e-3, 2e-3,
+                  f"mlstm chunk{c} vs plain")
+        d = close(got, base, 2e-3, 2e-3, f"mlstm chunk{c} vs chunk64")
+        log(f"[kernels] mlstm chunk{c}: max|err| vs plain {e:.3e}, "
+            f"vs chunk64 {d:.3e} (bit-identical: {torch.equal(got, base)})")
+    torch.cuda.synchronize()
+    return errs
+
+
+# ---------------------------------------------- 4. timing: the tuned ones
+def phase_tuned_timing(dev):
+    import torch.nn.functional as TF
+
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.mlstm import mlstm as ML
+    from repro_torch.kernels.mlstm import ops as mlstm_ops
+    from repro_torch.kernels.rg_lru import ops as rg_ops
+    from repro_torch.kernels.rg_lru import rg_lru as RL
+
+    inp = Inputs(dev, 3)
+    rows = []
+    m = FLASH_MODEL
+    B, S, Hq, Hkv, d = m["B"], m["S"], m["Hq"], m["Hkv"], m["d"]
+    for dt, peak in ((torch.bfloat16, PEAK_BF16_PER_S),
+                     (torch.float32, PEAK_TF32_PER_S)):
+        q, k, v = inp.flash(B, S, Hq, Hkv, d, dt)
+        esize = q.element_size()
+        nbytes = esize * (2 * q.numel() + 2 * k.numel())
+        flops = 4.0 * d * Hq * B * S * (S + 1) / 2  # causal: keys <= row
+        bound_ms, bound_by = _bound(nbytes, flops, peak)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        rec = {
+            "kernel": "flash_attention", "dtype": str(dt)[6:],
+            "shape": f"B{B} S{S} Hq{Hq} Hkv{Hkv} d{d} causal",
+            "kernel_ms": _time_ms(
+                lambda: flash_ops.flash_attention(q, k, v), 10, warmup=2),
+            "kernel_device_ms": _device_ms(
+                lambda: flash_ops.flash_attention(q, k, v),
+                "flash_attention_kernel", iters=5),
+            "plain_ms": _time_ms(
+                lambda: FA.flash_attention_plain(q, k, v), 5, warmup=1),
+            "library_ms": _time_ms(
+                lambda: TF.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True), 20,
+                warmup=3),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+        rows.append(rec)
+        log("[timing] " + json.dumps(rec))
+        del q, k, v, qt, kt, vt
+
+    m = RG_LRU_MODEL
+    B, S, D = m["B"], m["S"], m["D"]
+    a, b, h0 = inp.rg_lru(B, S, D)
+    bound_ms, bound_by = _bound(4.0 * (3 * B * S * D + 2 * B * D),
+                                2.0 * B * S * D, PEAK_TF32_PER_S)
+    rec = {
+        "kernel": "rg_lru", "dtype": "float32", "shape": f"B{B} S{S} D{D}",
+        "kernel_ms": _time_ms(lambda: rg_ops.rg_lru_scan(a, b, h0), 50),
+        "kernel_device_ms": _device_ms(lambda: rg_ops.rg_lru_scan(a, b, h0),
+                                       "rg_lru_kernel", iters=20),
+        "plain_ms": _time_ms(lambda: RL.rg_lru_plain(a, b, h0), 2,
+                             warmup=1),
+        "library_ms": None,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+    rows.append(rec)
+    log("[timing] " + json.dumps(rec))
+
+    m = MLSTM_MODEL
+    B, S, H, hw, c = m["B"], m["S"], m["H"], m["m"], m["chunk"]
+    ins = inp.mlstm(B, S, H, hw)
+    # per chunk and head: the masked c x c scores and A @ v, q @ C,
+    # q . n, the C update and the n update
+    tri = c * (c + 1) / 2
+    per_chunk = 2 * tri * hw * 2 + 2 * c * hw * hw * 2 + 4 * c * hw
+    flops = per_chunk * (S // c) * B * H
+    nbytes = 4.0 * (4 * B * S * H * hw + 2 * B * S * H)
+    bound_ms, bound_by = _bound(nbytes, flops, PEAK_TF32_PER_S)
+    rec = {
+        "kernel": "mlstm", "dtype": "float32",
+        "shape": f"B{B} S{S} H{H} m{hw} chunk{c}",
+        "kernel_ms": _time_ms(lambda: mlstm_ops.mlstm_chunkwise(*ins), 10,
+                              warmup=2),
+        "kernel_device_ms": _device_ms(
+            lambda: mlstm_ops.mlstm_chunkwise(*ins), "mlstm_kernel",
+            iters=5),
+        "plain_ms": _time_ms(lambda: ML.mlstm_plain(*ins), 5, warmup=1),
+        "library_ms": None,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+    rows.append(rec)
+    log("[timing] " + json.dumps(rec))
     return rows
 
 
@@ -478,32 +721,212 @@ def phase_main(device, *, fft_sizes=(64, 128, 256, 512, 1024, 2048),
     return results, counter
 
 
+# ------------------------------------------------------ 7. autotuning
+#: the kernel each tuned op launches, by its launch-counter name
+TUNED_KERNEL = {"fft_pallas": "fft", "zip_pallas": "zip",
+                "flash_attention": "flash_attention", "mlstm": "mlstm",
+                "rg_lru": "rg_lru"}
+#: tests/test_kernels.py's tolerance for each tuned op at the autotuner's
+#: inputs (the FFT rows are 1024 long)
+TUNED_TOL = {"fft_pallas": fft_tol(1024), "zip_pallas": (1e-5, 1e-5),
+             "flash_attention": (2e-4, 2e-4), "mlstm": (2e-3, 2e-3),
+             "rg_lru": (1e-4, 1e-4)}
+
+
+def kernel_modules():
+    """The kernel modules by name; each carries its launch counter."""
+    from repro_torch.kernels.fft import fft as F
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.mlstm import mlstm as ML
+    from repro_torch.kernels.rg_lru import rg_lru as RL
+    from repro_torch.kernels.zip import zip as Z
+
+    return {"fft": F, "zip": Z, "flash_attention": FA, "mlstm": ML,
+            "rg_lru": RL}
+
+
+def reset_counts():
+    for mod in kernel_modules().values():
+        mod.launches = 0
+
+
+def read_counts():
+    return {name: mod.launches for name, mod in kernel_modules().items()}
+
+
+def _tuned_plain(op, ts):
+    """The plain torch version of a tuned op's default variant."""
+    mods = kernel_modules()
+    if op == "fft_pallas":
+        return (mods["fft"].fft_plain(ts[0]),)
+    if op == "zip_pallas":
+        return (mods["zip"].zip_plain(ts[0], ts[1]),)
+    if op == "flash_attention":
+        fa = mods["flash_attention"]
+        return (fa.flash_attention_plain(
+            *ts, block_k=min(fa.BLOCK_K, ts[0].shape[1])),)
+    if op == "mlstm":
+        ml = mods["mlstm"]
+        return (ml.mlstm_plain(*ts, chunk=min(ml.CHUNK, ts[0].shape[1])),)
+    return mods["rg_lru"].rg_lru_plain(*ts)
+
+
+def phase_autotune(dev, ladder=None):
+    """The autotuning path as a user drives it: ``rimms.autotune`` on a
+    session with a ``gpu0`` PE, then every tuned op at every rung
+    submitted to ``gpu0``.  Returns the path's launch counts."""
+    from repro_torch import rimms
+    from repro_torch.core.autotune import tuned_summary
+    from repro_torch.core.calibrate import (DEFAULT_LADDER, DEFAULT_VARIANT,
+                                            _host)
+
+    ladder = tuple(ladder or DEFAULT_LADDER)
+    session = rimms.Session.emulated(n_cpu=1, accelerators=("gpu0",),
+                                     device=dev)
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        table = rimms.autotune(session, nbytes=ladder)
+        torch.cuda.synchronize()
+        calib = read_counts()
+        log(f"[autotune] {len(table)} cells over ladder {list(ladder)} in "
+            f"{time.perf_counter() - t0:.1f}s; kernel launches while "
+            f"calibrating {calib}")
+        if any(n <= 0 for n in calib.values()):
+            raise AssertionError(f"a kernel never ran in autotune: {calib}")
+        winners = tuned_summary(table)
+        log("[autotune] winners " + json.dumps(winners, sort_keys=True))
+
+        # references first: these launches are not the path's
+        cases = []
+        for tun in rimms.tunables():
+            for nb in ladder:
+                ins = [np.asarray(a) for a in tun.make_inputs(
+                    np.random.default_rng([0, int(nb)]), int(nb))]
+                nb_act = sum(a.nbytes for a in ins)
+                win = table.winner(tun.op, "gpu", nb_act)["variant"]
+                ts = [torch.from_numpy(a).to(dev) for a in ins]
+                default = [_host(o) for o in tun.fn(ts)]
+                plain = [_host(o) for o in _tuned_plain(tun.op, ts)]
+                cases.append((tun, nb, ins, win, default, plain))
+        torch.cuda.synchronize()
+
+        # the counted dispatch: every (op, rung) pinned to gpu0
+        session.runtime.reset_stats()
+        before = read_counts()
+        futs = []
+        for tun, nb, ins, *_ in cases:
+            name = f"{tun.op}@{nb}"
+            if tun.op == "rg_lru":
+                out = [session.malloc(ins[0].shape, np.float32),
+                       session.malloc(ins[2].shape, np.float32)]
+                futs.append(session.submit(tun.op, ins, out=out, pin="gpu0",
+                                           name=name))
+            else:
+                futs.append((session.submit(tun.op, ins, pin="gpu0",
+                                            name=name),))
+        results = [[np.array(f.result()) for f in fs] for fs in futs]
+        session.barrier()
+        after = read_counts()
+        dispatch = {k: after[k] - before[k] for k in after}
+        tasks = collections.Counter(
+            name.split("@")[0] for name, pe in session.runtime.task_log
+            if pe == "gpu0")
+        for op, kname in TUNED_KERNEL.items():
+            if dispatch[kname] != tasks[op] or tasks[op] != len(ladder):
+                raise AssertionError(
+                    f"{op}: {dispatch[kname]} {kname} launches for "
+                    f"{tasks[op]} gpu tasks ({len(ladder)} submitted)")
+        want_log = sorted((tun.op, "gpu", win) for tun, _, _, win, *_ in cases
+                          if win != DEFAULT_VARIANT)
+        got_log = sorted(session.runtime.variant_log)
+        if got_log != want_log:
+            raise AssertionError(f"variant_log {got_log} != winners "
+                                 f"{want_log}")
+        rows = []
+        for (tun, nb, ins, win, default, plain), outs in zip(cases, results):
+            rtol, atol = TUNED_TOL[tun.op]
+            identical = all(o.tobytes() == d.tobytes()
+                            for o, d in zip(outs, default))
+            if not identical:
+                raise AssertionError(f"{tun.op}@{nb}: the dispatched "
+                                     f"{win} differs from the default")
+            err = 0.0
+            for o, p in zip(outs, plain):
+                err = max(err, close(torch.from_numpy(o), torch.from_numpy(p),
+                                     rtol, atol, f"{tun.op}@{nb} vs plain"))
+            rows.append({"op": tun.op, "nbytes": int(nb), "winner": win,
+                         "bit_identical_to_default": identical,
+                         "max_abs_err_vs_plain": err})
+        log("[autotune] dispatch " + json.dumps(rows))
+        log(f"[autotune] {len(cases)} gpu0 tasks; the runtime ran each "
+            f"table winner ({len(want_log)} non-default); kernel launches "
+            f"{dispatch} equal the gpu tasks {dict(tasks)}")
+    finally:
+        session.close()
+    return calib, dispatch, winners
+
+
+def phase_cli():
+    """``python -m repro_torch.calibrate run`` on one rung, then
+    ``show`` on the table it wrote."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "calib.json"
+        t0 = time.perf_counter()
+        for argv in (["run", "--out", str(path), "--ladder", "64KiB"],
+                     ["show", str(path)]):
+            out = subprocess.run(
+                [sys.executable, "-m", "repro_torch.calibrate", *argv],
+                cwd=ROOT, env=env, capture_output=True, text=True,
+                timeout=900)
+            if out.returncode != 0:
+                raise AssertionError(f"calibrate {argv[0]} exited "
+                                     f"{out.returncode}:\n{out.stderr}")
+            tail = (out.stderr.strip() or out.stdout.strip()).splitlines()
+            log(f"[cli] calibrate {argv[0]}: {tail[-1] if tail else ''}")
+        shown = out.stdout
+        for op in TUNED_KERNEL:
+            if f"| {op} | gpu |" not in shown:
+                raise AssertionError(f"calibrate show lists no gpu winner "
+                                     f"for {op}")
+        log(f"[cli] run + show in {time.perf_counter() - t0:.1f}s; "
+            f"{len(shown.splitlines())} lines shown, gpu winners for "
+            f"every tuned op")
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
+    t_start = time.perf_counter()
     smi, name = phase_card()
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    from repro_torch.kernels.fft import fft as F
-    from repro_torch.kernels.zip import zip as Z
+    sys.path.insert(0, str(ROOT / "src"))
+    # the plain versions' matrix products run in full float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     phase_build()
     dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
     errs = phase_kernels(dev)
-    timing = phase_timing(dev)
+    errs.update(phase_tuned_kernels(dev))
+    log(f"[kernels] all checks passed in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    timing = phase_timing(dev) + phase_tuned_timing(dev)
+    log(f"[timing] {time.perf_counter() - t0:.1f}s")
 
     # warm the main path once (allocator, first H2D copies) — its
     # launches are not counted
     phase_main(None, fft_sizes=(64,), fzf_sizes=(64,), zip_sizes=(128,),
                pd=(4, 128), sar_scale=64, session_chains=1, session_n=64,
                reps=1)
-    F.launches = 0
-    Z.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     results, counter = phase_main(None)
     main_s = time.perf_counter() - t0
-    launches = {"fft": F.launches, "zip": Z.launches}
+    launches = read_counts()
     log(f"[main] {len(results)} configurations in {main_s:.1f}s; "
         f"device tasks fft/ifft {counter.fft}, zip {counter.zip}; "
-        f"kernel launches fft {launches['fft']}, zip {launches['zip']}")
+        f"kernel launches {launches}")
     if launches["fft"] <= 0 or launches["zip"] <= 0:
         raise AssertionError(f"a kernel never ran on the main path: {launches}")
     if (launches["fft"], launches["zip"]) != (counter.fft, counter.zip):
@@ -511,24 +934,47 @@ def main() -> int:
             f"launch counts {launches} != device tasks "
             f"fft {counter.fft}, zip {counter.zip}")
 
-    def pick(kernel, n):
-        return next(r for r in timing if r["kernel"] == kernel and r["n"] == n)
+    t0 = time.perf_counter()
+    calib, dispatch, _ = phase_autotune(dev)
+    tuned = {k: calib[k] + dispatch[k] for k in calib}
+    log(f"[autotune] path in {time.perf_counter() - t0:.1f}s; kernel "
+        f"launches over the path {tuned}")
+    phase_cli()
+
+    def pick(kernel, key, value):
+        return next(r for r in timing
+                    if r["kernel"] == kernel and r.get(key) == value)
 
     kernels = []
-    for kname, n, replaces in (
-        ("fft", 2048, "src/repro/kernels/fft/fft.py:27"),
-        ("zip", 131072, "src/repro/kernels/zip/zip.py:24"),
+    for kname, t, replaces, shape in (
+        ("fft", pick("fft", "n", 2048), "src/repro/kernels/fft/fft.py:27",
+         "1 x 2048 complex64"),
+        ("zip", pick("zip", "n", 131072), "src/repro/kernels/zip/zip.py:24",
+         "131072 complex64"),
+        ("flash_attention", pick("flash_attention", "dtype", "bfloat16"),
+         "src/repro/kernels/flash_attention/flash_attention.py:30", None),
+        ("mlstm", pick("mlstm", "kernel", "mlstm"),
+         "src/repro/kernels/mlstm/mlstm.py:28", None),
+        ("rg_lru", pick("rg_lru", "kernel", "rg_lru"),
+         "src/repro/kernels/rg_lru/rg_lru.py:24", None),
     ):
-        t = pick(kname, n)
+        on_radar = kname in ("fft", "zip")
         kernels.append({
             "name": kname, "route": "cuda",
             "source": f"src/repro_torch/csrc/{kname}.cu",
-            "replaces": replaces, "launches": launches[kname],
+            "replaces": replaces,
+            # the radar path for FFT and ZIP, the autotuning path for
+            # the kernels only it runs
+            "launches": launches[kname] if on_radar else tuned[kname],
+            "autotune_launches": tuned[kname],
+            "autotune_dispatch_launches": dispatch[kname],
             "max_abs_err": errs[kname], "ms": t["kernel_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "device_ms": t["kernel_device_ms"], "timed_n": n,
+            "device_ms": t["kernel_device_ms"],
+            "timed_shape": shape or f"{t['shape']} {t['dtype']}",
         })
+    log(f"[done] {time.perf_counter() - t_start:.1f}s in all")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
