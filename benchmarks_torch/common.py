@@ -3,9 +3,71 @@
 
 from __future__ import annotations
 
+import contextlib
+import json
+from pathlib import Path
 from typing import List
 
 ROWS: List[str] = []
+
+
+@contextlib.contextmanager
+def tracing(trace_dir, bench_name: str, *, capacity: int = 1 << 18,
+            lint: bool = True, metrics_dir=None):
+    """Trace one benchmark run end to end.
+
+    With a falsy ``trace_dir`` this is a no-op (yields ``None``) — the
+    benchmark runs exactly as before, tracer-free.  Otherwise a fresh
+    process-global :class:`~repro_torch.core.trace.TraceCollector` is
+    installed for the block (every ``HeteContext`` the bench creates
+    attaches automatically), the trace is exported to
+    ``<trace_dir>/TRACE_<bench_name>.json`` (Perfetto-loadable), and
+    ``trace_lint`` validates it — a violation fails the benchmark.
+
+    The wall/modeled divergence observed by every runtime the block
+    creates is aggregated and embedded in the trace
+    (``doc["rimms"]["divergence"]``); with ``metrics_dir``
+    set, the table is additionally written to
+    ``<metrics_dir>/METRICS_<bench_name>.json``.
+    """
+    if not trace_dir:
+        yield None
+        return
+    from repro_torch.core import telemetry
+    from repro_torch.core.trace import (TraceCollector, global_collector,
+                                  install_global, trace_lint)
+
+    prev = global_collector()
+    tc = TraceCollector(capacity_per_thread=capacity)
+    install_global(tc)
+    serial = telemetry.divergence_serial()
+    try:
+        yield tc
+    finally:
+        install_global(prev)
+    div = telemetry.aggregate_divergence(since=serial).table()
+    tc.set_divergence(div)
+    out = Path(trace_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / f"TRACE_{bench_name}.json"
+    doc = tc.export(str(path))
+    meta = doc["rimms"]
+    print(f"trace: {path} ({meta['n_wall_events']} wall + "
+          f"{meta['n_model_events']} modeled events, "
+          f"{len(div)} divergence cells)", flush=True)
+    if metrics_dir:
+        mdir = Path(metrics_dir)
+        mdir.mkdir(parents=True, exist_ok=True)
+        mpath = mdir / f"METRICS_{bench_name}.json"
+        mpath.write_text(json.dumps(
+            {"bench": bench_name, "divergence": div}, indent=1))
+        print(f"metrics: {mpath}", flush=True)
+    if lint:
+        violations = trace_lint(doc)
+        if violations:
+            msg = "\n".join(f"  - {v}" for v in violations)
+            raise AssertionError(
+                f"trace_lint failed for {path}:\n{msg}")
 
 
 def emit(name: str, us_per_call: float, derived: str = "") -> None:

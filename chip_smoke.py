@@ -29,7 +29,20 @@ Phases, each of which raises (exit code 1) on a failed check:
    ``rg_lru``) at every rung dispatched to ``gpu0``: the runtime must
    pick the table's winner, match the default variant bit for bit and
    the plain version within tolerance, and launch one kernel per task;
-   then ``python -m repro_torch.calibrate run`` (one rung) and ``show``.
+   then ``python -m repro_torch.calibrate run`` (one rung) and ``show``;
+8. serving path — llama3-8b at full width (32 layers, bf16, random
+   weights from ``Model.init`` with a seeded generator on ``cuda:0``)
+   serves 8 requests through ``SessionServeEngine`` (two tenants) and
+   then ``ServeEngine``: every request done, the two token streams equal
+   bit for bit, no KV spill, every page back, no NaN logits, and the
+   paged-attention kernel launched once per layer and decode step;
+9. dense path — llama3-8b at full width, 2 layers, float32:
+   ``ServeEngine`` (the paged kernel) gives the greedy tokens of
+   ``Model.prefill`` + ``decode_step`` (plain torch attention).
+
+Phases 3 and 4 also hold the paged-attention kernel against its plain
+version (the reference's sweep, rows of length 0, repeated pages, and
+llama3-8b decode width: 8 sequences of 4096 tokens) and time it.
 
 The last two lines are a JSON object of per-kernel records and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -68,6 +81,14 @@ PEAK_TF32_PER_S = 495e12
 FLASH_MODEL = dict(B=1, S=4096, Hq=32, Hkv=8, d=128)
 RG_LRU_MODEL = dict(B=1, S=4096, D=2560)
 MLSTM_MODEL = dict(B=1, S=4096, H=4, m=512, chunk=64)
+
+# llama3-8b decode: 8 sequences of 4096 tokens in 16-token pages
+PAGED_MODEL = dict(B=8, Hq=32, Hkv=8, d=128, page=16, n_pages=256)
+# the serving phase: two tenants as in examples/serve_llm.py, engines
+# sized for prompts of 32-128 tokens and 32 new tokens each
+SERVE = dict(max_batch=4, page_size=16, num_pages=512, max_pages_per_seq=32,
+             pages_per_group=8)
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 8, (32, 129), 32
 
 FFT_TIMED_N = (128, 256, 512, 2048)
 ZIP_TIMED_N = (128, 256, 512, 131072)
@@ -506,6 +527,123 @@ def phase_tuned_timing(dev):
     return rows
 
 
+# ---------------------------------- 3./4. the paged-attention kernel
+#: tests/test_kernels.py's sweep: (B, Hq, Hkv, d, P, page, n_pages)
+PAGED_SWEEP = ((2, 4, 4, 64, 16, 8, 4), (4, 8, 2, 64, 32, 16, 6),
+               (1, 2, 1, 128, 8, 4, 2))
+
+
+def _paged_inputs(inp, B, Hq, Hkv, d, P, page, npg, dtype, *, perm=False,
+                  lengths=None):
+    """q, K/V pools, block tables (each row distinct pages; with ``perm``
+    all rows together a random permutation of the pool) and lengths
+    (random in 1..npg*page unless given)."""
+    q = inp.normal(B, Hq, d, dtype=dtype)
+    kp = inp.normal(P, page, Hkv, d, dtype=dtype)
+    vp = inp.normal(P, page, Hkv, d, dtype=dtype)
+    if perm:
+        bt = torch.randperm(P, device=inp.dev, generator=inp.gen)[:B * npg]
+        bt = bt.reshape(B, npg)
+    else:
+        bt = torch.stack([torch.randperm(P, device=inp.dev,
+                                         generator=inp.gen)[:npg]
+                          for _ in range(B)])
+    if lengths is None:
+        lengths = torch.randint(1, npg * page + 1, (B,), device=inp.dev,
+                                generator=inp.gen)
+    lengths = torch.as_tensor(lengths, device=inp.dev)
+    return (q, kp, vp, bt.to(torch.int32).contiguous(),
+            lengths.to(torch.int32).contiguous())
+
+
+def phase_paged_kernel(dev):
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention import paged_attention as PA
+
+    inp = Inputs(dev, 4)
+    m = PAGED_MODEL
+    full = (m["B"], m["Hq"], m["Hkv"], m["d"], m["B"] * m["n_pages"],
+            m["page"], m["n_pages"])
+    zero_first = torch.randint(1, m["n_pages"] * m["page"] + 1, (m["B"],),
+                               generator=torch.Generator().manual_seed(4))
+    zero_first[0] = 0
+    cases = [(c, torch.float32, {}, "sweep") for c in PAGED_SWEEP]
+    cases.append(((3, 8, 2, 64, 16, 8, 5), torch.float32,
+                  {"lengths": [0, 7, 0]}, "rows of length 0"))
+    cases += [(full, dt, {"perm": True, "lengths": zero_first},
+               "llama3-8b decode width, row 0 of length 0")
+              for dt in (torch.bfloat16, torch.float32)]
+    err = 0.0
+    for shape, dt, kw, what in cases:
+        ins = _paged_inputs(inp, *shape, dt, **kw)
+        got = pa_ops.paged_attention(*ins)
+        torch.cuda.synchronize()
+        tol = flash_tol(dt)
+        e = close(got.float(), PA.paged_attention_plain(*ins).float(), tol,
+                  tol, f"paged_attention {shape} {str(dt)[6:]} ({what})")
+        err = max(err, e)
+        log(f"[kernels] paged_attention B,Hq,Hkv,d,P,page,n_pages={shape} "
+            f"{str(dt)[6:]} ({what}): max|err| vs plain {e:.3e} (tol {tol})")
+    # tables that repeat a page (the scratch page, padding)
+    q, kp, vp, _, _ = _paged_inputs(inp, 2, 4, 2, 64, 8, 8, 4, torch.float32)
+    bt = torch.tensor([[3, 3, 5, 3], [0, 0, 0, 0]], dtype=torch.int32,
+                      device=dev)
+    ln = torch.tensor([20, 3], dtype=torch.int32, device=dev)
+    e = close(pa_ops.paged_attention(q, kp, vp, bt, ln),
+              PA.paged_attention_plain(q, kp, vp, bt, ln), 2e-4, 2e-4,
+              "paged_attention repeated pages")
+    err = max(err, e)
+    log(f"[kernels] paged_attention repeated pages: max|err| vs plain "
+        f"{e:.3e} (tol 2e-4)")
+    torch.cuda.synchronize()
+    return {"paged_attention": err}
+
+
+def phase_paged_timing(dev):
+    import torch.nn.functional as TF
+
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention import paged_attention as PA
+
+    inp = Inputs(dev, 5)
+    m = PAGED_MODEL
+    B, Hq, Hkv, d, page, npg = (m["B"], m["Hq"], m["Hkv"], m["d"], m["page"],
+                                m["n_pages"])
+    S = npg * page
+    ins = _paged_inputs(inp, B, Hq, Hkv, d, B * npg, page, npg,
+                        torch.bfloat16, perm=True, lengths=[S] * B)
+    q, kp, vp, bt, ln = ins
+    # what this run's data needs: every row reads its pages up to its
+    # length, once, K and V; q read, out written; table and lengths read
+    pages = int(((ln.long() + page - 1) // page).sum())
+    nbytes = (q.element_size() * (2 * q.numel() + 2 * pages * page * Hkv * d)
+              + 4 * (bt.numel() + ln.numel()))
+    flops = 4.0 * Hq * d * int(ln.long().sum())
+    bound_ms, bound_by = _bound(nbytes, flops, PEAK_BF16_PER_S)
+    # the library yardstick: SDPA over K/V already gathered densely
+    kd = kp[bt.long()].reshape(B, S, Hkv, d).transpose(1, 2).contiguous()
+    vd = vp[bt.long()].reshape(B, S, Hkv, d).transpose(1, 2).contiguous()
+    qd = q[:, :, None, :]
+    rec = {
+        "kernel": "paged_attention", "dtype": "bfloat16",
+        "shape": f"B{B} Hq{Hq} Hkv{Hkv} d{d} page{page} n_pages{npg} "
+                 f"lengths {S}",
+        "kernel_ms": _time_ms(lambda: pa_ops.paged_attention(*ins), 200),
+        "kernel_device_ms": _device_ms(lambda: pa_ops.paged_attention(*ins),
+                                       "paged_attention_kernel"),
+        "plain_ms": _time_ms(lambda: PA.paged_attention_plain(*ins), 20,
+                             warmup=3),
+        "library_ms": _time_ms(lambda: TF.scaled_dot_product_attention(
+            qd, kd, vd, enable_gqa=True), 200),
+        "library_call": "scaled_dot_product_attention over K/V gathered "
+                        "into dense (B, Hkv, S, d) beforehand; the gather "
+                        "is not timed",
+        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+    }
+    log("[timing] " + json.dumps(rec))
+    return [rec]
+
+
 # --------------------------------------------------------- 5. main path
 def _np_fzf(a, b):
     return np.fft.ifft(np.fft.fft(a) * np.fft.fft(b))
@@ -738,11 +876,12 @@ def kernel_modules():
     from repro_torch.kernels.fft import fft as F
     from repro_torch.kernels.flash_attention import flash_attention as FA
     from repro_torch.kernels.mlstm import mlstm as ML
+    from repro_torch.kernels.paged_attention import paged_attention as PA
     from repro_torch.kernels.rg_lru import rg_lru as RL
     from repro_torch.kernels.zip import zip as Z
 
     return {"fft": F, "zip": Z, "flash_attention": FA, "mlstm": ML,
-            "rg_lru": RL}
+            "rg_lru": RL, "paged_attention": PA}
 
 
 def reset_counts():
@@ -792,7 +931,7 @@ def phase_autotune(dev, ladder=None):
         log(f"[autotune] {len(table)} cells over ladder {list(ladder)} in "
             f"{time.perf_counter() - t0:.1f}s; kernel launches while "
             f"calibrating {calib}")
-        if any(n <= 0 for n in calib.values()):
+        if any(calib[k] <= 0 for k in TUNED_KERNEL.values()):
             raise AssertionError(f"a kernel never ran in autotune: {calib}")
         winners = tuned_summary(table)
         log("[autotune] winners " + json.dumps(winners, sort_keys=True))
@@ -895,6 +1034,243 @@ def phase_cli():
             f"every tuned op")
 
 
+# ------------------------------------------------------- 8. serving path
+def serving_model(dev):
+    """llama3-8b at full width (32 layers, bf16) with random weights from
+    the port's ``Model.init`` and a seeded generator on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config("llama3_8b")
+    t0 = time.perf_counter()
+    params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    log(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim_}, vocab "
+        f"{cfg.vocab}; {n / 1e9:.3f} B params in {cfg.dtype}, made in "
+        f"{time.perf_counter() - t0:.1f}s; device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    return cfg, params
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def serving_work(vocab):
+    rng = np.random.default_rng(0)
+    return [(rng.integers(1, vocab, size=int(rng.integers(*SERVE_PROMPT)))
+             .tolist(), SERVE_NEW) for _ in range(SERVE_REQUESTS)]
+
+
+def _profile_steps(step, n: int):
+    """Device time of ``n`` calls of ``step`` from the profiler's CUDA
+    trace, split into the paged-attention kernel, matrix products
+    (cuBLAS's kernels: nvjet, gemm, gemv, CUTLASS) and the rest, in ms
+    per call; None ("not measured") when the profiler records no device
+    time here."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                step()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        by_name = collections.Counter()
+        for ev in prof.events():
+            if ev.device_type == DeviceType.CUDA:
+                by_name[ev.name] += ev.time_range.elapsed_us()
+    except Exception as e:  # a measurement, not a check: report absent
+        log(f"[serve] profiler unavailable ({type(e).__name__}: {e})")
+        return None
+    if not by_name:
+        return None
+    split = {"paged_attention": 0.0, "matmul": 0.0, "other": 0.0}
+    for name, us in by_name.items():
+        low = name.lower()
+        key = ("paged_attention" if "paged_attention" in low else "matmul"
+               if any(k in low for k in ("nvjet", "gemm", "gemv", "cutlass",
+                                         "xmma"))
+               else "other")
+        split[key] += us / n / 1e3
+    return {"device_ms_per_step": sum(split.values()),
+            "device_ms_per_step_by_kind": split,
+            "wall_ms_per_step_profiled": wall / n * 1e3,
+            "top_kernels_ms_per_step": {
+                name[:80]: us / n / 1e3
+                for name, us in by_name.most_common(6)}}
+
+
+def warm_serving(cfg, params):
+    """Four requests through the legacy engine before the counted run
+    (cuBLAS handles, the allocator), and a device-time profile of five of
+    its batch-4 decode steps at contexts of about 100 tokens: where a
+    full-width decode step's time goes."""
+    from repro_torch.serve.engine import ServeEngine
+
+    eng = ServeEngine(cfg, params, max_batch=SERVE["max_batch"],
+                      page_size=SERVE["page_size"], num_pages=64,
+                      max_pages_per_seq=SERVE["max_pages_per_seq"])
+    rng = np.random.default_rng(1)
+    for _ in range(SERVE["max_batch"]):
+        eng.submit(rng.integers(1, cfg.vocab, 96).tolist(), 8)
+    eng.step()  # admits all four (teacher-forced prefill), one decode step
+    torch.cuda.synchronize()
+    prof = _profile_steps(eng.step, 5)
+    eng.run()
+    torch.cuda.synchronize()
+    log("[serve] decode-step profile (legacy engine, batch 4, contexts "
+        "~100 tokens): " + json.dumps(prof))
+    return prof
+
+
+def phase_serving(cfg, params):
+    """``SessionServeEngine`` then ``ServeEngine`` on the same 8 requests
+    (engines on ``device=None``, which is CUDA).  Returns the records and
+    the paged-attention launches of each engine."""
+    from repro_torch.kernels.paged_attention import paged_attention as PA
+    from repro_torch.models import layers as L
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.session_engine import SessionServeEngine
+
+    work = serving_work(cfg.vocab)
+    group_bytes = (2 * cfg.n_layers * SERVE["pages_per_group"]
+                   * SERVE["page_size"] * cfg.n_kv_heads * cfg.head_dim_
+                   * L.cdtype(cfg).itemsize)  # K and V of one group
+    arena = (SERVE["num_pages"] // SERVE["pages_per_group"]) * group_bytes \
+        + (64 << 20)
+    nan_flags = []
+    lm_logits = L.lm_logits
+
+    def watched(c, p, x):  # every logits row of the phase, NaN or not
+        out = lm_logits(c, p, x)
+        nan_flags.append(torch.isnan(out).any())
+        return out
+
+    L.lm_logits = watched
+    records, streams = {}, {}
+    try:
+        for name in ("session", "legacy"):
+            before = PA.launches
+            if name == "session":
+                eng = SessionServeEngine(cfg, params, arena_bytes=arena,
+                                         **SERVE)
+                eng.tenant("pro", weight=4.0, quota_pages=192,
+                           slo_latency_s=1.0, slo_target=0.99)
+                eng.tenant("free", weight=1.0, quota_pages=32,
+                           slo_latency_s=1.0, slo_target=0.99)
+                reqs = [eng.submit(p, m, tenant="pro" if i % 2 == 0
+                                   else "free")
+                        for i, (p, m) in enumerate(work)]
+            else:
+                eng = ServeEngine(cfg, params, max_batch=SERVE["max_batch"],
+                                  page_size=SERVE["page_size"],
+                                  num_pages=SERVE["num_pages"],
+                                  max_pages_per_seq=SERVE["max_pages_per_seq"])
+                reqs = [eng.submit(p, m) for p, m in work]
+            t0 = time.perf_counter()
+            eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = PA.launches - before
+            if name == "session":
+                spill, used = eng.kv.spill_bytes(), eng.kv.used_pages
+                pct = eng.qos_report()["latency_percentiles"]
+                eng.close()
+            else:
+                spill, used, pct = 0, eng.pool.used_pages, None
+            if not all(r.done for r in reqs):
+                raise AssertionError(f"{name}: not every request done")
+            if spill != 0 or used != 1:
+                raise AssertionError(f"{name}: spill {spill} B, {used} "
+                                     f"pages in use at the end (want 0, 1)")
+            if launches != cfg.n_layers * eng.decode_steps:
+                raise AssertionError(
+                    f"{name}: {launches} paged-attention launches for "
+                    f"{eng.decode_steps} decode steps of {cfg.n_layers} "
+                    f"layers")
+            tokens = sum(len(r.generated) for r in reqs)
+            streams[name] = [r.generated for r in reqs]
+            records[name] = {
+                "requests": len(reqs), "new_tokens": tokens,
+                "prompt_tokens": sum(len(r.prompt) for r in reqs),
+                "decode_steps": eng.decode_steps, "wall_s": wall,
+                "tokens_per_s": tokens / wall,
+                "ms_per_decode_step": wall / eng.decode_steps * 1e3,
+                "paged_attention_launches": launches,
+                "spill_bytes": spill,
+            }
+            if pct is not None:
+                records[name]["modeled_p95_s"] = {
+                    t: pct[t]["p95"] for t in ("pro", "free", "prefill")}
+            log(f"[serve] {name} engine: " + json.dumps(records[name]))
+    finally:
+        L.lm_logits = lm_logits
+    if streams["session"] != streams["legacy"]:
+        raise AssertionError("session and legacy token streams differ")
+    if bool(torch.stack(nan_flags).any()):
+        raise AssertionError("NaN in the serving phase's logits")
+    log(f"[serve] {len(work)} requests, prompts {[len(p) for p, _ in work]}"
+        f" tokens, {SERVE_NEW} new each: the two engines' token streams "
+        f"are equal bit for bit; no NaN in {len(nan_flags)} logits "
+        f"batches; no KV spill; every page back")
+    return records
+
+
+# ------------------------------------------------------- 9. dense path
+def phase_dense_check(dev):
+    """llama3-8b at full width, 2 layers, float32: the paged engine gives
+    the greedy tokens of ``Model.prefill`` + ``decode_step``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import paged_attention as PA
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = dataclasses.replace(get_config("llama3_8b"), n_layers=2,
+                              dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(1))
+    work = [([5, 9, 2, 7], 6), ([11, 12, 13], 4)]
+    before = PA.launches
+    eng = ServeEngine(cfg, params, max_batch=2, page_size=16, num_pages=64,
+                      max_pages_per_seq=16)
+    reqs = [eng.submit(p, m) for p, m in work]
+    eng.run()
+    if PA.launches - before != cfg.n_layers * eng.decode_steps:
+        raise AssertionError("dense check: launches != layers x steps")
+    for req, (prompt, n_new) in zip(reqs, work):
+        logits, caches = model.prefill(
+            params, {"tokens": torch.tensor([prompt], device=dev)},
+            max_len=128)
+        tok, pos, want = int(torch.argmax(logits[0])), len(prompt), []
+        for _ in range(n_new):
+            want.append(tok)
+            logits, caches = model.decode_step(
+                params, caches, torch.tensor([tok], device=dev),
+                torch.tensor([pos], device=dev))
+            tok, pos = int(torch.argmax(logits[0])), pos + 1
+        if req.generated != want:
+            raise AssertionError(f"dense check: engine {req.generated} != "
+                                 f"prefill + decode_step {want}")
+    log(f"[dense] llama3-8b width, 2 layers, float32: ServeEngine tokens "
+        f"equal Model.prefill + decode_step for {len(work)} prompts "
+        f"({[r.generated for r in reqs]})")
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     t_start = time.perf_counter()
@@ -909,9 +1285,11 @@ def main() -> int:
     t0 = time.perf_counter()
     errs = phase_kernels(dev)
     errs.update(phase_tuned_kernels(dev))
+    errs.update(phase_paged_kernel(dev))
     log(f"[kernels] all checks passed in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
-    timing = phase_timing(dev) + phase_tuned_timing(dev)
+    timing = (phase_timing(dev) + phase_tuned_timing(dev)
+              + phase_paged_timing(dev))
     log(f"[timing] {time.perf_counter() - t0:.1f}s")
 
     # warm the main path once (allocator, first H2D copies) — its
@@ -941,6 +1319,22 @@ def main() -> int:
         f"launches over the path {tuned}")
     phase_cli()
 
+    # the serving path: warmed outside the counted run
+    cfg, params = serving_model(dev)
+    step_profile = warm_serving(cfg, params)
+    reset_counts()
+    t0 = time.perf_counter()
+    serving = phase_serving(cfg, params)
+    serve_counts = read_counts()
+    log(f"[serve] path in {time.perf_counter() - t0:.1f}s; kernel launches "
+        f"{serve_counts}")
+    if serve_counts["paged_attention"] <= 0:
+        raise AssertionError("the paged-attention kernel never ran on the "
+                             "serving path")
+    del params
+    torch.cuda.empty_cache()
+    phase_dense_check(dev)
+
     def pick(kernel, key, value):
         return next(r for r in timing
                     if r["kernel"] == kernel and r.get(key) == value)
@@ -957,15 +1351,20 @@ def main() -> int:
          "src/repro/kernels/mlstm/mlstm.py:28", None),
         ("rg_lru", pick("rg_lru", "kernel", "rg_lru"),
          "src/repro/kernels/rg_lru/rg_lru.py:24", None),
+        ("paged_attention", pick("paged_attention", "kernel",
+                                 "paged_attention"),
+         "src/repro/kernels/paged_attention/paged_attention.py:31", None),
     ):
-        on_radar = kname in ("fft", "zip")
+        # the radar path for FFT and ZIP, the serving path for paged
+        # attention, the autotuning path for the kernels only it runs
+        path_launches = (launches[kname] if kname in ("fft", "zip") else
+                         serve_counts[kname] if kname == "paged_attention"
+                         else tuned[kname])
         kernels.append({
             "name": kname, "route": "cuda",
             "source": f"src/repro_torch/csrc/{kname}.cu",
             "replaces": replaces,
-            # the radar path for FFT and ZIP, the autotuning path for
-            # the kernels only it runs
-            "launches": launches[kname] if on_radar else tuned[kname],
+            "launches": path_launches,
             "autotune_launches": tuned[kname],
             "autotune_dispatch_launches": dispatch[kname],
             "max_abs_err": errs[kname], "ms": t["kernel_ms"],
@@ -973,7 +1372,11 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "device_ms": t["kernel_device_ms"],
             "timed_shape": shape or f"{t['shape']} {t['dtype']}",
+            **({"library_call": t["library_call"]}
+               if "library_call" in t else {}),
         })
+    log("[serve] summary " + json.dumps({"engines": serving,
+                                         "decode_step_profile": step_profile}))
     log(f"[done] {time.perf_counter() - t_start:.1f}s in all")
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -110,8 +110,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.rimms_rg_lru_f32.argtypes = [p, p, p, p, p, i32, i32, i32, i32, p]
     lib.rimms_flash_attention.argtypes = [p, p, p, p] + [i32] * 9 + [f32, p]
     lib.rimms_mlstm_f32.argtypes = [p] * 6 + [i32] * 5 + [f32, p]
+    lib.rimms_paged_attention.argtypes = [p] * 6 + [i32] * 8 + [f32, p]
     for fn in (lib.rimms_fft_c64, lib.rimms_zip_c64, lib.rimms_rg_lru_f32,
-               lib.rimms_flash_attention, lib.rimms_mlstm_f32):
+               lib.rimms_flash_attention, lib.rimms_mlstm_f32,
+               lib.rimms_paged_attention):
         fn.restype = i32
     return lib
 

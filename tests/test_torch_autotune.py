@@ -367,7 +367,8 @@ def _imports(path):
 
 def test_port_benchmarks_import_no_jax():
     files = sorted((ROOT / "benchmarks_torch").rglob("*.py"))
-    assert files
+    files += sorted((ROOT / "examples_torch").rglob("*.py"))
+    assert len(files) >= 4
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]

@@ -1,4 +1,4 @@
-"""The port's hand-written CUDA kernels and its main path on the card.
+"""The port's hand-written CUDA kernels and its paths on the card.
 
 Every test here carries the ``cuda`` marker and skips without a CUDA
 device (the kernels have no CPU mode).  This file imports neither JAX
@@ -21,6 +21,8 @@ from repro_torch.kernels.flash_attention import flash_attention as FA
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.mlstm import mlstm as ML
 from repro_torch.kernels.mlstm import ops as mlstm_ops
+from repro_torch.kernels.paged_attention import ops as pa_ops
+from repro_torch.kernels.paged_attention import paged_attention as PA
 from repro_torch.kernels.rg_lru import ops as rg_ops
 from repro_torch.kernels.rg_lru import rg_lru as RL
 from repro_torch.kernels.zip import ops as zip_ops
@@ -168,3 +170,67 @@ def test_autotune_dispatches_kernels_on_gpu(cuda):
         assert np.array_equal(out, ref.cpu().numpy())
     finally:
         session.close()
+
+
+@pytest.mark.parametrize("B,hq,hkv,d,P,page,npg,dtype", [
+    (2, 4, 4, 64, 16, 8, 4, torch.float32),
+    (4, 8, 2, 64, 32, 16, 6, torch.float32),
+    (1, 2, 1, 128, 8, 4, 2, torch.float32),
+    (3, 32, 8, 128, 96, 16, 32, torch.bfloat16),
+])
+def test_paged_attention_kernel_matches_plain(cuda, B, hq, hkv, d, P, page,
+                                              npg, dtype):
+    """tests/test_kernels.py's sweep and a llama3-8b-width case; row 0 of
+    length 0 (the uniform mean of V), never NaN."""
+    gen = torch.Generator(device=cuda).manual_seed(P)
+    q = torch.randn(B, hq, d, device=cuda, generator=gen).to(dtype)
+    kp, vp = (torch.randn(P, page, hkv, d, device=cuda,
+                          generator=gen).to(dtype) for _ in range(2))
+    bt = torch.stack([torch.randperm(P, device=cuda, generator=gen)[:npg]
+                      for _ in range(B)]).int()
+    ln = torch.randint(1, npg * page + 1, (B,), device=cuda, generator=gen)
+    ln[0] = 0
+    ln = ln.int()
+    before = PA.launches
+    got = pa_ops.paged_attention(q, kp, vp, bt, ln)
+    assert PA.launches == before + 1
+    assert torch.isfinite(got).all()
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-4
+    torch.testing.assert_close(
+        got.float(), PA.paged_attention_plain(q, kp, vp, bt, ln).float(),
+        rtol=tol, atol=tol)
+
+
+def test_serving_engines_launch_the_kernel(cuda):
+    """Both engines on the card (device=None): the same tokens, one
+    paged-attention launch per layer and decode step."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.session_engine import SessionServeEngine
+
+    cfg = dataclasses.replace(get_config("llama3_8b").smoke(),
+                              dtype="bfloat16")
+    params = build_model(cfg).init(
+        torch.Generator(device=cuda).manual_seed(0))
+    rng = np.random.default_rng(0)
+    work = [(rng.integers(1, cfg.vocab, int(rng.integers(2, 9))).tolist(),
+             int(rng.integers(2, 6))) for _ in range(6)]
+    kw = dict(max_batch=3, page_size=8, num_pages=64, max_pages_per_seq=8)
+    streams = []
+    for make in (lambda: ServeEngine(cfg, params, **kw),
+                 lambda: SessionServeEngine(cfg, params, pages_per_group=8,
+                                            **kw)):
+        eng = make()
+        before = PA.launches
+        reqs = [eng.submit(p, m) for p, m in work]
+        eng.run()
+        assert all(r.done for r in reqs)
+        assert PA.launches - before == cfg.n_layers * eng.decode_steps > 0
+        streams.append([r.generated for r in reqs])
+        if isinstance(eng, SessionServeEngine):
+            assert eng.kv.used_pages == 1
+            eng.close()
+    assert streams[0] == streams[1]
