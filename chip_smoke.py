@@ -36,13 +36,18 @@ Phases, each of which raises (exit code 1) on a failed check:
    then ``ServeEngine``: every request done, the two token streams equal
    bit for bit, no KV spill, every page back, no NaN logits, and the
    paged-attention kernel launched once per layer and decode step;
+   beforehand a device-time profile of five decode steps and five
+   teacher-forced prefill steps of the legacy engine;
 9. dense path — llama3-8b at full width, 2 layers, float32:
    ``ServeEngine`` (the paged kernel) gives the greedy tokens of
    ``Model.prefill`` + ``decode_step`` (plain torch attention).
 
 Phases 3 and 4 also hold the paged-attention kernel against its plain
 version (the reference's sweep, rows of length 0, repeated pages, and
-llama3-8b decode width: 8 sequences of 4096 tokens) and time it.
+llama3-8b decode width: 8 sequences of 4096 tokens) and time it there
+and at phase 8's own shapes (batch 4, 32-page tables: a teacher-forced
+prefill step with lengths [100, 0, 0, 0] and a lock-step decode step).
+Device times from the profiler sum every kernel a call launches.
 
 The last two lines are a JSON object of per-kernel records and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -236,15 +241,21 @@ def _time_ms(fn, iters: int, warmup: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(fn, kernel_name: str, iters: int = 50):
-    """Device time of one launch of ``kernel_name`` from the profiler's
-    CUDA trace, or None ("not measured") when the profiler cannot trace
-    the card here or records no device time for it."""
+def _device_ms(fn, kernel_name: str, iters: int = 50, per_call: int = 1):
+    """Device time of one call of ``fn`` from the profiler's CUDA trace:
+    every kernel whose name holds ``kernel_name``, ``per_call`` of them a
+    call (a call may launch more than one, e.g. a split pass and its
+    combine), summed and divided by the calls.  The trace occasionally
+    comes back empty or drops events, so a trace that holds any other
+    number of those kernels than ``iters * per_call`` is taken again,
+    once; None ("not measured") when that fails too or the profiler
+    cannot trace the card here."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _attempt in range(2):  # the trace occasionally comes back empty
+    want = iters * per_call
+    for _attempt in range(2):
         try:
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
@@ -254,13 +265,19 @@ def _device_ms(fn, kernel_name: str, iters: int = 50):
         except Exception as e:  # a measurement, not a check: report absent
             log(f"[timing] profiler unavailable ({type(e).__name__}: {e})")
             return None
+        total, n = 0.0, 0
         for ev in prof.key_averages():
             if kernel_name in ev.key:
-                total = getattr(ev, "device_time_total", None)
-                if total is None:
-                    total = getattr(ev, "cuda_time_total", 0.0)
-                if total and ev.count:
-                    return total / ev.count / 1e3  # µs -> ms
+                t = getattr(ev, "device_time_total", None)
+                if t is None:
+                    t = getattr(ev, "cuda_time_total", 0.0)
+                if t:  # a kernel on the card, not a host-side event
+                    total += t
+                    n += ev.count
+        if n == want:
+            return total / iters / 1e3  # µs per call -> ms
+        log(f"[timing] the trace holds {n} {kernel_name} kernels, not "
+            f"{want}")
     return None
 
 
@@ -454,29 +471,34 @@ def phase_tuned_timing(dev):
     rows = []
     m = FLASH_MODEL
     B, S, Hq, Hkv, d = m["B"], m["S"], m["Hq"], m["Hkv"], m["d"]
+    # bf16 at the bf16 tensor-core rate; float32 at the FP32 rate, the
+    # arithmetic the kernel must keep (2e-4 rules out TF32), with the
+    # TF32 tensor-core figure beside it
     for dt, peak in ((torch.bfloat16, PEAK_BF16_PER_S),
-                     (torch.float32, PEAK_TF32_PER_S)):
+                     (torch.float32, PEAK_FP32_PER_S)):
         q, k, v = inp.flash(B, S, Hq, Hkv, d, dt)
         esize = q.element_size()
         nbytes = esize * (2 * q.numel() + 2 * k.numel())
         flops = 4.0 * d * Hq * B * S * (S + 1) / 2  # causal: keys <= row
         bound_ms, bound_by = _bound(nbytes, flops, peak)
+        extra = ({"bound_tf32_ms": _bound(nbytes, flops, PEAK_TF32_PER_S)[0]}
+                 if dt == torch.float32 else {})
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         rec = {
             "kernel": "flash_attention", "dtype": str(dt)[6:],
             "shape": f"B{B} S{S} Hq{Hq} Hkv{Hkv} d{d} causal",
             "kernel_ms": _time_ms(
-                lambda: flash_ops.flash_attention(q, k, v), 10, warmup=2),
+                lambda: flash_ops.flash_attention(q, k, v), 50, warmup=5),
             "kernel_device_ms": _device_ms(
                 lambda: flash_ops.flash_attention(q, k, v),
-                "flash_attention_kernel", iters=5),
+                "flash_attention", iters=5),
             "plain_ms": _time_ms(
                 lambda: FA.flash_attention_plain(q, k, v), 5, warmup=1),
             "library_ms": _time_ms(
                 lambda: TF.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=True, enable_gqa=True), 20,
                 warmup=3),
-            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms": bound_ms, "bound_by": bound_by, **extra,
         }
         rows.append(rec)
         log("[timing] " + json.dumps(rec))
@@ -573,6 +595,15 @@ def phase_paged_kernel(dev):
     cases += [(full, dt, {"perm": True, "lengths": zero_first},
                "llama3-8b decode width, row 0 of length 0")
               for dt in (torch.bfloat16, torch.float32)]
+    # odd groups: the last query row's items take 16 columns of it, up to
+    # the kernel's limit of (Hq / Hkv) * d <= 4096 (252 and 255 items for
+    # 256 threads), and d = 72, whose last item has one 8-column slice
+    cases += [(shape, dt, {"lengths": ln}, f"odd group {hq // hkv}")
+              for shape, ln in (((2, 21, 1, 192, 64, 16, 32), [300, 0]),
+                                ((2, 34, 2, 240, 64, 16, 32), [512, 17]),
+                                ((3, 9, 3, 72, 32, 8, 12), [96, 0, 41]))
+              for hq, hkv in [shape[1:3]]
+              for dt in (torch.bfloat16, torch.float32)]
     err = 0.0
     for shape, dt, kw, what in cases:
         ins = _paged_inputs(inp, *shape, dt, **kw)
@@ -599,6 +630,31 @@ def phase_paged_kernel(dev):
     return {"paged_attention": err}
 
 
+def _paged_work(ln, n_pages: int, page: int, Hq: int, Hkv: int, d: int,
+                esize: int):
+    """Bytes and flops these lengths need: a row of length L >= 1 reads
+    K and V at its first min(L, n_pos) positions; a row of length 0 is
+    the uniform mean of V over all n_pos table positions (no K)."""
+    n_pos = n_pages * page
+    rows = [int(x) for x in ln.tolist()]
+    kv_rows = sum(2 * min(L, n_pos) if L > 0 else n_pos for L in rows)
+    nbytes = (esize * (2 * len(rows) * Hq * d + kv_rows * Hkv * d)
+              + 4 * len(rows) * (n_pages + 1))  # q, out; K/V; table, lengths
+    flops = sum(4.0 * Hq * d * min(L, n_pos) if L > 0
+                else 2.0 * Hq * d * n_pos for L in rows)
+    return nbytes, flops
+
+
+#: the timed shapes: llama3-8b decode width (8 sequences of 4096 tokens)
+#: and phase 8's own (batch 4, 32-page tables) in a teacher-forced
+#: prefill step (one row active, three of length 0) and a lock-step
+#: decode step
+PAGED_TIMED = (("decode_4096", dict(B=8, n_pages=256, lengths=[4096] * 8)),
+               ("serve_prefill", dict(B=4, n_pages=32,
+                                      lengths=[100, 0, 0, 0])),
+               ("serve_decode", dict(B=4, n_pages=32, lengths=[100] * 4)))
+
+
 def phase_paged_timing(dev):
     import torch.nn.functional as TF
 
@@ -607,41 +663,57 @@ def phase_paged_timing(dev):
 
     inp = Inputs(dev, 5)
     m = PAGED_MODEL
-    B, Hq, Hkv, d, page, npg = (m["B"], m["Hq"], m["Hkv"], m["d"], m["page"],
-                                m["n_pages"])
-    S = npg * page
-    ins = _paged_inputs(inp, B, Hq, Hkv, d, B * npg, page, npg,
-                        torch.bfloat16, perm=True, lengths=[S] * B)
-    q, kp, vp, bt, ln = ins
-    # what this run's data needs: every row reads its pages up to its
-    # length, once, K and V; q read, out written; table and lengths read
-    pages = int(((ln.long() + page - 1) // page).sum())
-    nbytes = (q.element_size() * (2 * q.numel() + 2 * pages * page * Hkv * d)
-              + 4 * (bt.numel() + ln.numel()))
-    flops = 4.0 * Hq * d * int(ln.long().sum())
-    bound_ms, bound_by = _bound(nbytes, flops, PEAK_BF16_PER_S)
-    # the library yardstick: SDPA over K/V already gathered densely
-    kd = kp[bt.long()].reshape(B, S, Hkv, d).transpose(1, 2).contiguous()
-    vd = vp[bt.long()].reshape(B, S, Hkv, d).transpose(1, 2).contiguous()
-    qd = q[:, :, None, :]
-    rec = {
-        "kernel": "paged_attention", "dtype": "bfloat16",
-        "shape": f"B{B} Hq{Hq} Hkv{Hkv} d{d} page{page} n_pages{npg} "
-                 f"lengths {S}",
-        "kernel_ms": _time_ms(lambda: pa_ops.paged_attention(*ins), 200),
-        "kernel_device_ms": _device_ms(lambda: pa_ops.paged_attention(*ins),
-                                       "paged_attention_kernel"),
-        "plain_ms": _time_ms(lambda: PA.paged_attention_plain(*ins), 20,
-                             warmup=3),
-        "library_ms": _time_ms(lambda: TF.scaled_dot_product_attention(
-            qd, kd, vd, enable_gqa=True), 200),
-        "library_call": "scaled_dot_product_attention over K/V gathered "
-                        "into dense (B, Hkv, S, d) beforehand; the gather "
-                        "is not timed",
-        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-    }
-    log("[timing] " + json.dumps(rec))
-    return [rec]
+    Hq, Hkv, d, page = m["Hq"], m["Hkv"], m["d"], m["page"]
+    rows = []
+    for case, c in PAGED_TIMED:
+        B, npg = c["B"], c["n_pages"]
+        S = npg * page
+        ins = _paged_inputs(inp, B, Hq, Hkv, d, B * npg, page, npg,
+                            torch.bfloat16, perm=True, lengths=c["lengths"])
+        q, kp, vp, bt, ln = ins
+        nbytes, flops = _paged_work(ln, npg, page, Hq, Hkv, d,
+                                    q.element_size())
+        bound_ms, bound_by = _bound(nbytes, flops, PEAK_BF16_PER_S)
+        # the library yardstick: SDPA over K/V already gathered densely
+        kd = kp[bt.long()].reshape(B, S, Hkv, d).transpose(1, 2).contiguous()
+        vd = vp[bt.long()].reshape(B, S, Hkv, d).transpose(1, 2).contiguous()
+        qd = q[:, :, None, :]
+        # (a row of length 0 attends over every position here: the
+        # yardstick's cost, not the oracle's uniform weights)
+        mask = None
+        if any(0 < L < S for L in c["lengths"]):
+            mask = ((torch.arange(S, device=dev)[None, :] < ln.long()[:, None])
+                    | (ln.long()[:, None] <= 0))[:, None, None, :]
+        # the serving shapes split each table 8 ways, with rows of length
+        # 0 and rows that end before their later splits
+        e = close(pa_ops.paged_attention(*ins).float(),
+                  PA.paged_attention_plain(*ins).float(), 2e-2, 2e-2,
+                  f"paged_attention {case}")
+        torch.cuda.synchronize()
+        log(f"[kernels] paged_attention {case}: max|err| vs plain {e:.3e} "
+            f"(tol 2e-2)")
+        rec = {
+            "kernel": "paged_attention", "case": case, "dtype": "bfloat16",
+            "max_abs_err": e,
+            "shape": f"B{B} Hq{Hq} Hkv{Hkv} d{d} page{page} n_pages{npg} "
+                     f"lengths {c['lengths'] if B <= 4 else S}",
+            "kernel_ms": _time_ms(lambda: pa_ops.paged_attention(*ins), 200),
+            "kernel_device_ms": _device_ms(
+                lambda: pa_ops.paged_attention(*ins), "paged_attention"),
+            "plain_ms": _time_ms(lambda: PA.paged_attention_plain(*ins), 20,
+                                 warmup=3),
+            "library_ms": _time_ms(lambda: TF.scaled_dot_product_attention(
+                qd, kd, vd, attn_mask=mask, enable_gqa=True), 200),
+            "library_call": "scaled_dot_product_attention over K/V "
+                            "gathered into dense (B, Hkv, S, d) beforehand "
+                            "(the gather not timed), with a length mask "
+                            "where a row is shorter than S; rows of length "
+                            "0 attend over every position",
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+        }
+        rows.append(rec)
+        log("[timing] " + json.dumps(rec))
+    return rows
 
 
 # --------------------------------------------------------- 5. main path
@@ -1115,9 +1187,9 @@ def _profile_steps(step, n: int):
 
 def warm_serving(cfg, params):
     """Four requests through the legacy engine before the counted run
-    (cuBLAS handles, the allocator), and a device-time profile of five of
-    its batch-4 decode steps at contexts of about 100 tokens: where a
-    full-width decode step's time goes."""
+    (cuBLAS handles, the allocator), and device-time profiles of five of
+    its batch-4 decode steps at contexts of about 100 tokens and of five
+    teacher-forced prefill steps: where a full-width step's time goes."""
     from repro_torch.serve.engine import ServeEngine
 
     eng = ServeEngine(cfg, params, max_batch=SERVE["max_batch"],
@@ -1129,11 +1201,18 @@ def warm_serving(cfg, params):
     eng.step()  # admits all four (teacher-forced prefill), one decode step
     torch.cuda.synchronize()
     prof = _profile_steps(eng.step, 5)
+    # a teacher-forced prefill step: slot 0 alone active (lengths
+    # [pos + 1, 0, 0, 0]), rewriting its own next position with the token
+    # it holds, as its next decode step will
+    prefill = _profile_steps(lambda: eng._decode_one(
+        0, int(eng.slot_tok[0]), int(eng.slot_pos[0])), 5)
     eng.run()
     torch.cuda.synchronize()
     log("[serve] decode-step profile (legacy engine, batch 4, contexts "
         "~100 tokens): " + json.dumps(prof))
-    return prof
+    log("[serve] prefill-step profile (legacy engine, one row active at "
+        "~100 tokens, three of length 0): " + json.dumps(prefill))
+    return {"decode": prof, "prefill": prefill}
 
 
 def phase_serving(cfg, params):
@@ -1206,7 +1285,9 @@ def phase_serving(cfg, params):
             records[name] = {
                 "requests": len(reqs), "new_tokens": tokens,
                 "prompt_tokens": sum(len(r.prompt) for r in reqs),
-                "decode_steps": eng.decode_steps, "wall_s": wall,
+                "decode_steps": eng.decode_steps,
+                "prefill_steps": sum(len(r.prompt) - 1 for r in reqs),
+                "wall_s": wall,
                 "tokens_per_s": tokens / wall,
                 "ms_per_decode_step": wall / eng.decode_steps * 1e3,
                 "paged_attention_launches": launches,
@@ -1291,6 +1372,9 @@ def main() -> int:
     timing = (phase_timing(dev) + phase_tuned_timing(dev)
               + phase_paged_timing(dev))
     log(f"[timing] {time.perf_counter() - t0:.1f}s")
+    errs["paged_attention"] = max(
+        [errs["paged_attention"]] + [r["max_abs_err"] for r in timing
+                                     if r["kernel"] == "paged_attention"])
 
     # warm the main path once (allocator, first H2D copies) — its
     # launches are not counted
@@ -1351,8 +1435,7 @@ def main() -> int:
          "src/repro/kernels/mlstm/mlstm.py:28", None),
         ("rg_lru", pick("rg_lru", "kernel", "rg_lru"),
          "src/repro/kernels/rg_lru/rg_lru.py:24", None),
-        ("paged_attention", pick("paged_attention", "kernel",
-                                 "paged_attention"),
+        ("paged_attention", pick("paged_attention", "case", "decode_4096"),
          "src/repro/kernels/paged_attention/paged_attention.py:31", None),
     ):
         # the radar path for FFT and ZIP, the serving path for paged
@@ -1376,7 +1459,7 @@ def main() -> int:
                if "library_call" in t else {}),
         })
     log("[serve] summary " + json.dumps({"engines": serving,
-                                         "decode_step_profile": step_profile}))
+                                         "step_profiles": step_profile}))
     log(f"[done] {time.perf_counter() - t_start:.1f}s in all")
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -4,251 +4,651 @@
 // Replaces the Pallas kernel
 // src/repro/kernels/flash_attention/flash_attention.py::_flash_kernel
 // (launched by flash_attention_bh, behind flash_attention/ops.py, which
-// repeats K/V for GQA).  For each query row, over key tiles of block_k
-// columns in order:
+// repeats K/V for GQA).  For each query row, over its keys in chunks:
 //     s = (q . k) * scale, masked to -1e30 above the diagonal when causal
 //     m' = max(m, max s);  p = exp(s - m');  alpha = exp(m - m')
 //     l = alpha l + sum p;  acc = alpha acc + p v;  m = m'
 // and at the end out = acc / max(l, 1e-30), in the input type.
 //
 // What bounds it on the H100: 4 S^2 d flops per head (half of that when
-// causal) against 4 S d elements moved, so at any sequence the kernel
-// should be bound by operations; this first version runs them as float32
-// fused multiply-adds on the CUDA cores (67 TFLOP/s peak), not on the
-// tensor cores, so it cannot reach the bf16 or TF32 tensor-core bound.
-// Design: one thread block per (batch*head, tile of block_q query rows),
-// walking its tile in sub-tiles of 64 rows.  A sub-tile's queries, one
-// 64-row chunk of K (then of V) and the sub-tile's scores for one key tile
-// sit in shared memory, as float32 (bf16 is widened on load); each of the
-// 128 threads holds a 4 x 8 block of scores and a 4 x d/8 block of the
-// accumulator in registers.  The running max, sum and rescale factor per
-// row stay in shared memory.  K/V rows are read at head h / (Hq / Hkv) in
-// place: no repeated copy of K/V exists.  Key columns at or past S are
-// never read or summed (the ragged last tile is narrower), and causal
-// sub-tiles stop at the last key their rows can see.
-// Bit identity across block_q: every query row sees the same key tiles of
-// block_k columns, reduced in the same order by the same threads of a row,
-// whatever block_q is; block_q only moves rows between blocks and
-// sub-tiles.  A key tile past a row's diagonal that a sub-tile still visits
-// leaves that row's m, l and acc bit-unchanged (p = 0, alpha = 1), since
-// tile 0 always gives the row a real maximum first.  -1e30 (not -inf) and
-// the 1e-30 floor are the reference's.
+// causal) against 4 S d elements moved, so it is bound by operations: the
+// bf16 tensor-core rate for bf16 (reached only through wgmma), the FP32
+// rate for float32 (its tolerance, 2e-4, rules out TF32's ~3 digits).
+//
+// Design (FlashAttention-2's scheme).  The query rows are cut into
+// sub-tiles of 64 rows starting at multiples of 64; one thread block of 4
+// warps per (batch*head, block_q rows) walks ceil(block_q / 64) of them,
+// dealt in snake order across the blocks so that under a causal mask every
+// block sees about the same number of keys.  K/V rows are read at head
+// h / (Hq / Hkv) in place (no repeat for GQA).  Keys go in chunks of at
+// most 64 that never cross a block_k tile: tile t covers [t block_k,
+// (t+1) block_k) and is cut into chunks of 64 from its start (block_k 100:
+// 64, 36, 64, 36, ...).  A chunk's K and V rows come by 16-byte
+// cp.async.cg into a 2-stage ring in shared memory (rows past the chunk's
+// end are zero-filled), so the next chunk's copy overlaps this chunk's
+// products; one __syncthreads per chunk.  The online softmax step runs
+// once per chunk, in log2 units: m is kept scaled by scale * log2e, and
+// p = exp2(fma(s, scale * log2e, -m)).
+//  * bf16: the 4 warps are one warpgroup and the 64-row sub-tile is its
+//    wgmma tile.  Q.K^T is wgmma m64n64k16 with Q and K from shared
+//    memory (K-major); P.V is wgmma m64nDk16 with P from registers and V
+//    from shared memory (MN-major, transposed by the instruction), f32
+//    accumulators in registers.  Q, K and V tiles are stored in the
+//    128-byte swizzle (atoms of 64 rows x 128 bytes, 16-byte piece c of
+//    row r at (c ^ r % 8) * 16), which the descriptors name; cp.async's
+//    writes are fenced into the async proxy before wgmma reads them.  A
+//    warp owns 16 rows of each accumulator (the m16n8 layout): the
+//    row max and sum reduce over the 4 lanes of a quad with shuffles, and
+//    the score accumulator is already P.V's register A operand.  p is
+//    rounded to bf16 only there; l sums the f32 p.
+//  * float32: CUDA-core FMAs.  Each warp owns 16 rows; a thread holds an
+//    8 x 4 tile of scores (rows 16w + 2i + h, columns cg + 16j) and an
+//    8 x (D/16) tile of the output (columns 4 cg + 64 t + u), fed by float4
+//    shared loads from rows padded by 16 bytes (conflict-free).  Scores
+//    stay in registers: P.V takes p from the owning lane by shuffle.
+//
+// Bit identity across block_q (the tunables contract): a row's result is a
+// function of its own q row and of the chunk sequence, and neither depends
+// on block_q:
+//  * the chunk boundaries depend on block_k and S only;
+//  * each output row is its own dot products (a row of a wgmma, or one
+//    thread's FMAs) and its own quad/16-lane reductions, in an instruction
+//    sequence fixed by the chunk, so no other row's data or position
+//    enters it;
+//  * sub-tiles start at multiples of 64 whatever block_q is (block_q only
+//    decides which block walks them), and a sub-tile's causal stop
+//    depends only on its start (the float32 path's warps also skip chunks
+//    that start past their last row);
+//  * a chunk a row does not see (past its diagonal) leaves its m, l and acc
+//    unchanged bit for bit: every raw score is -1e30, so the chunk's max
+//    (-1e30 * scale * log2e) is below the row's real m and m' = m,
+//    p = exp2(-1e30 * scale * log2e - m) = 0 exactly, alpha = exp2(0) = 1,
+//    so l = 1 l + 0 and acc = 1 acc + 0.  The first chunk (key 0) is seen
+//    by every row, so m is a real score before any masked chunk comes.
+//    Hence visiting such a chunk or skipping it gives the same bits.  The
+//    mask is applied only to chunks that hold a key some row of the tile
+//    must not see; elsewhere it would change nothing.
+// -1e30 (not -inf) and the 1e-30 floor are the reference's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kRows = 64;    // query rows per sub-tile
-constexpr int kChunk = 64;   // key (or value) rows per shared-memory chunk
+constexpr int kThreads = 128;  // 4 warps
+constexpr int kRows = 64;      // query rows per sub-tile
+constexpr int kChunk = 64;     // keys per chunk
 constexpr int kMaxBlockK = 512;
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void narrow(float* p, float x) { *p = x; }
-__device__ __forceinline__ void narrow(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <int D>
-constexpr size_t smem_floats_fixed() {
-  return (size_t)(kRows + kChunk) * (D + 1) + 3 * kRows;
+// 16 bytes global -> shared; src_bytes 0 zero-fills the destination
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int S,
-                       int Hq, int Hkv, int block_q, int block_k, int causal,
-                       float scale) {
-  constexpr int DP = D + 1;     // padded row: conflict-free column reads
-  constexpr int DJ = D / 8;     // accumulator columns per thread
-  extern __shared__ float smem[];
-  const int bkp = block_k + 1;
-  float* qs = smem;                    // [kRows][DP]
-  float* kv = qs + kRows * DP;         // [kChunk][DP]   K, then V, chunk
-  float* m_s = kv + kChunk * DP;       // [kRows] running max
-  float* l_s = m_s + kRows;            // [kRows] running sum
-  float* a_s = l_s + kRows;            // [kRows] this tile's rescale
-  float* ss = a_s + kRows;             // [kRows][bkp] scores, then p
+// End of the chunk that starts at c0: at most 64 keys, inside c0's block_k
+// tile, before S
+__device__ __forceinline__ int chunk_end(int c0, int block_k, int S) {
+  const int tile_end = (c0 / block_k + 1) * block_k;
+  return min(min(c0 + kChunk, tile_end), S);
+}
 
-  const int tid = threadIdx.x;
-  const int cg = tid % 8;   // column group: columns cg + 8 j
-  const int rg = tid / 8;   // row group: rows rg + 16 i
-  const int warp = tid / 32, lane = tid % 32;
-  const int bh = blockIdx.y;
-  const int b = bh / Hq, h = bh % Hq;
-  const int hk = h / (Hq / Hkv);
-  const long long q_pos = (long long)Hq * D;   // stride between positions
-  const long long kv_pos = (long long)Hkv * D;
-  const T* qb = q + (long long)b * S * q_pos + (long long)h * D;
-  T* ob = out + (long long)b * S * q_pos + (long long)h * D;
-  const T* kb = k + (long long)b * S * kv_pos + (long long)hk * D;
-  const T* vb = v + (long long)b * S * kv_pos + (long long)hk * D;
-
-  const int tile0 = blockIdx.x * block_q;
-  const int tile1 = min(tile0 + block_q, S);
-  for (int r0 = tile0; r0 < tile1; r0 += kRows) {
-    const int nrows = min(kRows, tile1 - r0);
-    for (int e = tid; e < kRows * D; e += kThreads) {
-      const int r = e / D, i = e % D;
-      qs[r * DP + i] =
-          r < nrows ? widen(qb[(long long)(r0 + r) * q_pos + i]) : 0.f;
-    }
-    if (tid < kRows) {
-      m_s[tid] = kNegInf;
-      l_s[tid] = 0.f;
-    }
-    float acc[4][DJ];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-    __syncthreads();
-
-    // keys the sub-tile's rows can see: k <= r0 + nrows - 1 when causal
-    const int k_end = causal ? min(S, r0 + nrows) : S;
-    for (int k0 = 0; k0 < k_end; k0 += block_k) {
-      const int ncols = min(block_k, S - k0);
-      // scores of this key tile, chunk by chunk of K
-      for (int c0 = 0; c0 < ncols; c0 += kChunk) {
-        const int nc = min(kChunk, ncols - c0);
-        for (int e = tid; e < kChunk * D; e += kThreads) {
-          const int c = e / D, i = e % D;
-          kv[c * DP + i] =
-              c < nc ? widen(kb[(long long)(k0 + c0 + c) * kv_pos + i]) : 0.f;
-        }
-        __syncthreads();
-        float sc[4][8];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) sc[i][j] = 0.f;
-#pragma unroll 4
-        for (int x = 0; x < D; ++x) {
-          float qv[4], kx[8];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) qv[i] = qs[(rg + 16 * i) * DP + x];
-#pragma unroll
-          for (int j = 0; j < 8; ++j) kx[j] = kv[(cg + 8 * j) * DP + x];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) sc[i][j] = fmaf(qv[i], kx[j], sc[i][j]);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = rg + 16 * i;
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const int c = cg + 8 * j;
-            if (c < nc) {
-              float s = __fmul_rn(sc[i][j], scale);
-              if (causal && k0 + c0 + c > r0 + r) s = kNegInf;
-              ss[r * bkp + c0 + c] = s;
-            }
-          }
-        }
-        __syncthreads();
-      }
-      // online softmax: warp w owns rows w, w + 4, ...
-      for (int r = warp; r < kRows; r += kThreads / 32) {
-        float* row = ss + r * bkp;
-        float mx = kNegInf;
-        for (int c = lane; c < ncols; c += 32) mx = fmaxf(mx, row[c]);
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-        const float m_prev = m_s[r];
-        const float m_new = fmaxf(m_prev, mx);
-        float sum = 0.f;
-        for (int c = lane; c < ncols; c += 32) {
-          const float p = expf(__fsub_rn(row[c], m_new));
-          row[c] = p;
-          sum = __fadd_rn(sum, p);
-        }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, off));
-        if (lane == 0) {
-          const float alpha = expf(__fsub_rn(m_prev, m_new));
-          a_s[r] = alpha;
-          l_s[r] = __fadd_rn(__fmul_rn(alpha, l_s[r]), sum);
-          m_s[r] = m_new;
-        }
-      }
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float alpha = a_s[rg + 16 * i];
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] = __fmul_rn(acc[i][j], alpha);
-      }
-      // acc += p @ v, chunk by chunk of V
-      for (int c0 = 0; c0 < ncols; c0 += kChunk) {
-        const int nc = min(kChunk, ncols - c0);
-        for (int e = tid; e < kChunk * D; e += kThreads) {
-          const int c = e / D, i = e % D;
-          kv[c * DP + i] =
-              c < nc ? widen(vb[(long long)(k0 + c0 + c) * kv_pos + i]) : 0.f;
-        }
-        __syncthreads();
-        for (int c = 0; c < nc; ++c) {
-          float p[4], vx[DJ];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) p[i] = ss[(rg + 16 * i) * bkp + c0 + c];
-#pragma unroll
-          for (int j = 0; j < DJ; ++j) vx[j] = kv[c * DP + cg + 8 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(p[i], vx[j], acc[i][j]);
-        }
-        __syncthreads();
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = rg + 16 * i;
-      if (r < nrows) {
-        const float l = fmaxf(l_s[r], 1e-30f);
-        T* dst = ob + (long long)(r0 + r) * q_pos;
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) narrow(dst + cg + 8 * j, acc[i][j] / l);
-      }
-    }
-    __syncthreads();  // qs, m_s, l_s are refilled by the next sub-tile
+// Copy positions [r0, r1) of one head (src points at position 0 of it,
+// pos_stride elements apart) into `dst` rows 0..NROWS-1 (DS elements
+// apart), 16 bytes per cp.async; rows past r1 - r0 are zero-filled.
+template <typename T, int D, int DS, int NROWS>
+__device__ __forceinline__ void load_rows(T* dst, const T* src,
+                                          long long pos_stride, int r0,
+                                          int r1) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kPerRow = D / kVec;
+  for (int e = threadIdx.x; e < NROWS * kPerRow; e += kThreads) {
+    const int r = e / kPerRow, c = (e % kPerRow) * kVec;
+    const bool ok = r0 + r < r1;
+    const T* g = src + (long long)(ok ? r0 + r : 0) * pos_stride + c;
+    cp_async16(dst + r * DS + c, g, ok ? 16 : 0);
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int S, int Hq, int Hkv, int causal, int block_q, int block_k,
-           float scale, cudaStream_t stream) {
-  const size_t bytes =
-      (smem_floats_fixed<D>() + (size_t)kRows * (block_k + 1)) * sizeof(float);
+// ------------------------------------------------------------------ bf16
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// d (64 x 64 a warpgroup, 32 floats a thread) = A (shared, K-major) *
+// B (shared, K-major), plus d when `accumulate`
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+// d (64 x 64, 32 floats a thread) += A (registers) * B (shared,
+// MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+// d (64 x 128, 64 floats a thread) += A (registers) * B (shared,
+// MN-major)
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// the compiler must treat an accumulator as written where this stands
+__device__ __forceinline__ void reg_fence(float& x) {
+  asm volatile("" : "+f"(x)::"memory");
+}
+// cp.async's writes to shared memory, made visible to wgmma's reads
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A shared-memory matrix descriptor, 128-byte swizzle
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// Tiles of 64 rows x D bf16 in the 128-byte swizzle: D / 64 atoms of
+// 64 rows x 128 bytes (8 KiB), 16-byte piece c of row r at
+// r * 128 + ((c ^ (r % 8)) * 16) within its atom.
+constexpr int kAtom = 64 * 128;
+
+template <int D, int NROWS>
+__device__ __forceinline__ void load_rows_sw(unsigned char* dst,
+                                             const __nv_bfloat16* src,
+                                             long long pos_stride, int r0,
+                                             int r1) {
+  constexpr int kPerRow = D / 8;  // 16-byte pieces
+  for (int e = threadIdx.x; e < NROWS * kPerRow; e += kThreads) {
+    const int r = e / kPerRow, c = e % kPerRow;
+    const bool ok = r0 + r < r1;
+    const __nv_bfloat16* g =
+        src + (long long)(ok ? r0 + r : 0) * pos_stride + c * 8;
+    cp_async16(dst + (c / 8) * kAtom + r * 128 + (((c % 8) ^ (r % 8)) << 4),
+               g, ok ? 16 : 0);
+  }
+}
+
+template <int D>
+constexpr int wg_smem_bytes() {
+  return 5 * (D / 64) * kAtom + 1024;  // Q, 2 stages of K and V; alignment
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_attention_bf16(const __nv_bfloat16* __restrict__ q,
+                     const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v,
+                     __nv_bfloat16* __restrict__ out, int S, int Hq, int Hkv,
+                     int block_q, int block_k, int causal, float scale) {
+  constexpr int KS = D / 16;       // k-steps of Q.K^T
+  constexpr int NT = D / 8;        // n-tiles of the output
+  constexpr int TILE = (D / 64) * kAtom;  // bytes of a 64-row tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* qs = base;
+  unsigned char* ks0 = base + TILE;  // stage s: K at ks0 + 2 s TILE, V after
+  const uint32_t qs_a = smem_u32(qs), ks0_a = smem_u32(ks0);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tig = lane % 4;
+  const int bh = blockIdx.y;
+  const int b = bh / Hq, h = bh % Hq;
+  const int hk = h / (Hq / Hkv);
+  const long long q_pos = (long long)Hq * D;
+  const long long kv_pos = (long long)Hkv * D;
+  const __nv_bfloat16* qb = q + (long long)b * S * q_pos + (long long)h * D;
+  __nv_bfloat16* ob = out + (long long)b * S * q_pos + (long long)h * D;
+  const __nv_bfloat16* kb =
+      k + (long long)b * S * kv_pos + (long long)hk * D;
+  const __nv_bfloat16* vb =
+      v + (long long)b * S * kv_pos + (long long)hk * D;
+  const float sl = scale * kLog2e;
+
+  const int n_sub = (block_q + kRows - 1) / kRows, nb = gridDim.x;
+  for (int rd = 0; rd < n_sub; ++rd) {
+    const int r0 =
+        (rd * nb + (rd % 2 == 0 ? blockIdx.x : nb - 1 - blockIdx.x)) * kRows;
+    if (r0 >= S) continue;
+    const int nrows = min(kRows, S - r0);
+    const int k_end = causal ? min(S, r0 + nrows) : S;
+    const int w0 = r0 + 16 * warp;       // this warp's first row
+    load_rows_sw<D, kRows>(qs, qb, q_pos, r0, r0 + nrows);
+    int c0 = 0, c1 = chunk_end(0, block_k, S);
+    load_rows_sw<D, kChunk>(ks0, kb, kv_pos, c0, c1);
+    load_rows_sw<D, kChunk>(ks0 + TILE, vb, kv_pos, c0, c1);
+    cp_async_commit();
+
+    float o[NT * 4];
+#pragma unroll
+    for (int i = 0; i < NT * 4; ++i) o[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+    for (int it = 0; c0 < k_end; ++it) {
+      const int n0 = c1, n1 = n0 < k_end ? chunk_end(n0, block_k, S) : n0;
+      cp_async_wait_all();
+      fence_async_shared();
+      __syncthreads();  // chunk `it` is in; every warp is done with it - 1
+      if (n0 < k_end) {
+        unsigned char* st = ks0 + ((it + 1) & 1) * 2 * TILE;
+        load_rows_sw<D, kChunk>(st, kb, kv_pos, n0, n1);
+        load_rows_sw<D, kChunk>(st + TILE, vb, kv_pos, n0, n1);
+      }
+      cp_async_commit();
+      const uint32_t ks_a = ks0_a + (it & 1) * 2 * TILE, vs_a = ks_a + TILE;
+      // s = q k^T for 64 keys: the warpgroup's 64 x 64, 8 n-tiles a warp
+      float s[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        const uint32_t off = (kk / 4) * kAtom + (kk % 4) * 32;
+        wgmma_ss_n64(s, sw128_desc(qs_a + off, 16, 1024),
+                     sw128_desc(ks_a + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int i = 0; i < 32; ++i) reg_fence(s[i]);
+      // mask (only where the chunk holds a key some row of this warpgroup
+      // must not see), then the online-softmax step for rows g and g + 8
+      if (c1 - c0 < kChunk || (causal && c1 - 1 > r0)) {
+#pragma unroll
+        for (int t = 0; t < 8; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = c0 + 8 * t + 2 * tig + (e & 1);
+            const int row = w0 + g + 8 * (e >> 1);
+            if (key >= c1 || (causal && key > row)) s[4 * t + e] = kNegInf;
+          }
+      }
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * t + e]);
+      float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r] * sl);
+        alpha[r] = exp2f(m[r] - m_new);
+        m[r] = m_new;
+      }
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[4 * t + e] = exp2f(fmaf(s[4 * t + e], sl, -m[e >> 1]));
+          sum[e >> 1] += s[4 * t + e];
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+        l[r] = alpha[r] * l[r] + sum[r];
+      }
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        o[4 * t] *= alpha[0];
+        o[4 * t + 1] *= alpha[0];
+        o[4 * t + 2] *= alpha[1];
+        o[4 * t + 3] *= alpha[1];
+      }
+      // acc += p v: p (64 x 64) as 4 register A fragments of 16 keys
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+      }
+#pragma unroll
+      for (int i = 0; i < NT * 4; ++i) reg_fence(o[i]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t dv = sw128_desc(vs_a + kk * 16 * 128, kAtom, 1024);
+        if constexpr (D == 128)
+          wgmma_rs_n128(o, pa[kk], dv);
+        else
+          wgmma_rs_n64(o, pa[kk], dv);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int i = 0; i < NT * 4; ++i) reg_fence(o[i]);
+      c0 = n0;
+      c1 = n1;
+    }
+    // out = acc / max(l, 1e-30) for this thread's rows g and g + 8
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = w0 + g + 8 * r;
+      if (row < r0 + nrows) {
+        const float lf = fmaxf(l[r], 1e-30f);
+        __nv_bfloat16* dst = ob + (long long)row * q_pos + 2 * tig;
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+          *reinterpret_cast<__nv_bfloat162*>(dst + 8 * t) =
+              __floats2bfloat162_rn(o[4 * t + 2 * r] / lf,
+                                    o[4 * t + 2 * r + 1] / lf);
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();  // the next sub-tile refills Q and the ring
+  }
+}
+
+// --------------------------------------------------------------- float32
+template <int D>
+constexpr int f32_smem_bytes() {
+  return (kRows + 4 * kChunk) * (D + 4) * 4;  // Q, 2 stages of K and V
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ out,
+                    int S, int Hq, int Hkv, int block_q, int block_k,
+                    int causal, float scale) {
+  constexpr int DS = D + 4;   // padded row (16 bytes): conflict-free float4
+  constexpr int OT = D / 64;  // output column groups of 4 per thread
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);
+  float* ks0 = qs + kRows * DS;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int hr = lane / 16, cg = lane % 16;  // row parity, column group
+  const int bh = blockIdx.y;
+  const int b = bh / Hq, h = bh % Hq;
+  const int hk = h / (Hq / Hkv);
+  const long long q_pos = (long long)Hq * D;
+  const long long kv_pos = (long long)Hkv * D;
+  const float* qb = q + (long long)b * S * q_pos + (long long)h * D;
+  float* ob = out + (long long)b * S * q_pos + (long long)h * D;
+  const float* kb = k + (long long)b * S * kv_pos + (long long)hk * D;
+  const float* vb = v + (long long)b * S * kv_pos + (long long)hk * D;
+  const float sl = scale * kLog2e;
+
+  // block_q / 64 sub-tiles, dealt in snake order (round r takes sub-tile
+  // r nb + x on even rounds, r nb + nb - 1 - x on odd ones), so that under
+  // a causal mask every block gets about the same number of keys
+  const int n_sub = (block_q + kRows - 1) / kRows, nb = gridDim.x;
+  for (int rd = 0; rd < n_sub; ++rd) {
+    const int r0 =
+        (rd * nb + (rd % 2 == 0 ? blockIdx.x : nb - 1 - blockIdx.x)) * kRows;
+    if (r0 >= S) continue;
+    const int nrows = min(kRows, S - r0);
+    const int k_end = causal ? min(S, r0 + nrows) : S;
+    const int w0 = r0 + 16 * warp;
+    const int w_last = w0 + 15;
+    load_rows<float, D, DS, kRows>(qs, qb, q_pos, r0, r0 + nrows);
+    int c0 = 0, c1 = chunk_end(0, block_k, S);
+    load_rows<float, D, DS, kChunk>(ks0, kb, kv_pos, c0, c1);
+    load_rows<float, D, DS, kChunk>(ks0 + kChunk * DS, vb, kv_pos, c0, c1);
+    cp_async_commit();
+
+    // rows 16 warp + 2 i + hr (i < 8); output columns 4 cg + 64 t + u
+    float o[8][OT][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int t = 0; t < OT; ++t)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) o[i][t][u] = 0.f;
+    float m[8], l[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      m[i] = kNegInf;
+      l[i] = 0.f;
+    }
+    const float* qw = qs + (16 * warp + hr) * DS;
+
+    for (int it = 0; c0 < k_end; ++it) {
+      const int n0 = c1, n1 = n0 < k_end ? chunk_end(n0, block_k, S) : n0;
+      cp_async_wait_all();
+      __syncthreads();
+      if (n0 < k_end) {
+        float* st = ks0 + ((it + 1) & 1) * 2 * kChunk * DS;
+        load_rows<float, D, DS, kChunk>(st, kb, kv_pos, n0, n1);
+        load_rows<float, D, DS, kChunk>(st + kChunk * DS, vb, kv_pos, n0, n1);
+      }
+      cp_async_commit();
+      if (!causal || c0 <= w_last) {
+        const float* ks = ks0 + (it & 1) * 2 * kChunk * DS;
+        const float* vs = ks + kChunk * DS;
+        // s[i][j] = q[row i] . k[key cg + 16 j]
+        float s[8][4];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 2
+        for (int x = 0; x < D; x += 4) {
+          float4 kx[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            kx[j] = *reinterpret_cast<const float4*>(ks + (cg + 16 * j) * DS +
+                                                     x);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float4 qv =
+                *reinterpret_cast<const float4*>(qw + 2 * i * DS + x);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              s[i][j] = fmaf(qv.x, kx[j].x, s[i][j]);
+              s[i][j] = fmaf(qv.y, kx[j].y, s[i][j]);
+              s[i][j] = fmaf(qv.z, kx[j].z, s[i][j]);
+              s[i][j] = fmaf(qv.w, kx[j].w, s[i][j]);
+            }
+          }
+        }
+        // mask and the online-softmax step; a row's 64 scores lie in the
+        // 16 lanes of its half-warp
+        const bool edge = c1 - c0 < kChunk || (causal && c1 - 1 > w0);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int row = w0 + 2 * i + hr;
+          float mx = kNegInf;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int key = c0 + cg + 16 * j;
+            if (edge && (key >= c1 || (causal && key > row)))
+              s[i][j] = kNegInf;
+            mx = fmaxf(mx, s[i][j]);
+          }
+#pragma unroll
+          for (int off = 1; off < 16; off <<= 1)
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+          const float m_new = fmaxf(m[i], mx * sl);  // log2 units
+          const float alpha = exp2f(m[i] - m_new);
+          m[i] = m_new;
+          float sum = 0.f;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = exp2f(fmaf(s[i][j], sl, -m_new));
+            sum += s[i][j];
+          }
+#pragma unroll
+          for (int off = 1; off < 16; off <<= 1)
+            sum += __shfl_xor_sync(0xffffffffu, sum, off);
+          l[i] = alpha * l[i] + sum;
+#pragma unroll
+          for (int t = 0; t < OT; ++t)
+#pragma unroll
+            for (int u = 0; u < 4; ++u) o[i][t][u] *= alpha;
+        }
+        // acc += p v: p[row][key] comes from the lane owning key's column
+        const int nkeys = c1 - c0;  // keys past it have p = 0, V rows 0
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          for (int c = 0; c < 16; ++c) {
+            const int key = c + 16 * j;
+            if (key >= nkeys) break;
+            float4 vx[OT];
+#pragma unroll
+            for (int t = 0; t < OT; ++t)
+              vx[t] = *reinterpret_cast<const float4*>(vs + key * DS +
+                                                       4 * cg + 64 * t);
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              const float p = __shfl_sync(0xffffffffu, s[i][j], 16 * hr + c);
+#pragma unroll
+              for (int t = 0; t < OT; ++t) {
+                o[i][t][0] = fmaf(p, vx[t].x, o[i][t][0]);
+                o[i][t][1] = fmaf(p, vx[t].y, o[i][t][1]);
+                o[i][t][2] = fmaf(p, vx[t].z, o[i][t][2]);
+                o[i][t][3] = fmaf(p, vx[t].w, o[i][t][3]);
+              }
+            }
+          }
+        }
+      }
+      c0 = n0;
+      c1 = n1;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = w0 + 2 * i + hr;
+      if (row < r0 + nrows) {
+        const float lf = fmaxf(l[i], 1e-30f);
+        float* dst = ob + (long long)row * q_pos + 4 * cg;
+#pragma unroll
+        for (int t = 0; t < OT; ++t)
+          *reinterpret_cast<float4*>(dst + 64 * t) =
+              make_float4(o[i][t][0] / lf, o[i][t][1] / lf, o[i][t][2] / lf,
+                          o[i][t][3] / lf);
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+  }
+}
+
+template <typename T, typename K>
+int launch(K kernel, int bytes, const T* q, const T* k, const T* v, T* out,
+           int B, int S, int Hq, int Hkv, int causal, int block_q,
+           int block_k, float scale, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((S + block_q - 1) / block_q),
-                  (unsigned)(B * Hq));
-  flash_attention_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, S, Hq, Hkv, block_q,
-      block_k, causal, scale);
+  const int n_sub = (block_q + kRows - 1) / kRows;  // sub-tiles per block
+  const int tiles = (S + kRows - 1) / kRows;
+  const dim3 grid((unsigned)((tiles + n_sub - 1) / n_sub), (unsigned)(B * Hq));
+  kernel<<<grid, kThreads, bytes, stream>>>(q, k, v, out, S, Hq, Hkv, block_q,
+                                            block_k, causal, scale);
   return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, void* out,
+                int B, int S, int Hq, int Hkv, int causal, int block_q,
+                int block_k, float scale, cudaStream_t st) {
+  using T = __nv_bfloat16;
+  return launch(flash_attention_bf16<D>, wg_smem_bytes<D>(), (const T*)q,
+                (const T*)k, (const T*)v, (T*)out, B, S, Hq, Hkv, causal,
+                block_q, block_k, scale, st);
+}
+
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
+               int S, int Hq, int Hkv, int causal, int block_q, int block_k,
+               float scale, cudaStream_t st) {
+  return launch(flash_attention_f32<D>, f32_smem_bytes<D>(), (const float*)q,
+                (const float*)k, (const float*)v, (float*)out, B, S, Hq, Hkv,
+                causal, block_q, block_k, scale, st);
 }
 
 }  // namespace
 
 // q, out: (B, S, Hq, D); k, v: (B, S, Hkv, D); all contiguous, of one type
-// (dtype 0: float32, 1: bfloat16); D 64 or 128; Hq a multiple of Hkv;
-// 1 <= block_k <= 512 (block_k <= S).  Launches on `stream`; returns
-// cudaGetLastError() (0 on success).
+// (dtype 0: float32, 1: bfloat16), 16-byte aligned; D 64 or 128; Hq a
+// multiple of Hkv; 1 <= block_k <= 512 (block_k <= S).  Launches on
+// `stream`; returns cudaGetLastError() (0 on success).
 extern "C" int rimms_flash_attention(const void* q, const void* k,
                                      const void* v, void* out, int B, int S,
                                      int Hq, int Hkv, int D, int dtype,
@@ -256,21 +656,22 @@ extern "C" int rimms_flash_attention(const void* q, const void* k,
                                      float scale, void* stream) {
   if (B < 0 || S < 0 || Hq < 1 || Hkv < 1 || Hq % Hkv != 0 ||
       block_q < 1 || block_k < 1 || block_k > kMaxBlockK ||
-      (long long)B * Hq > 65535)
+      (long long)B * Hq > 65535 ||
+      ((size_t)q | (size_t)k | (size_t)v | (size_t)out) % 16)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0 && D == 64)
-    return launch<float, 64>(q, k, v, out, B, S, Hq, Hkv, causal, block_q,
-                             block_k, scale, st);
+    return launch_f32<64>(q, k, v, out, B, S, Hq, Hkv, causal, block_q,
+                          block_k, scale, st);
   if (dtype == 0 && D == 128)
-    return launch<float, 128>(q, k, v, out, B, S, Hq, Hkv, causal, block_q,
-                              block_k, scale, st);
+    return launch_f32<128>(q, k, v, out, B, S, Hq, Hkv, causal, block_q,
+                           block_k, scale, st);
   if (dtype == 1 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, out, B, S, Hq, Hkv, causal,
-                                     block_q, block_k, scale, st);
+    return launch_bf16<64>(q, k, v, out, B, S, Hq, Hkv, causal, block_q,
+                           block_k, scale, st);
   if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, out, B, S, Hq, Hkv, causal,
-                                      block_q, block_k, scale, st);
+    return launch_bf16<128>(q, k, v, out, B, S, Hq, Hkv, causal, block_q,
+                            block_k, scale, st);
   return (int)cudaErrorInvalidValue;
 }

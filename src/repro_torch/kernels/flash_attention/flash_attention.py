@@ -4,10 +4,16 @@ Two versions of one function over q (B, S, Hq, d) and k, v
 (B, S, Hkv, d), float32 or bfloat16, accumulating in float32:
 
 * :func:`flash_attention_kernel` launches the hand-written CUDA kernel
-  (``csrc/flash_attention.cu``): one thread block per (batch·head,
-  tile of ``block_q`` query rows), K/V chunks and the scores of a key
-  tile in shared memory, the kv head read as ``h // (Hq // Hkv)`` in
-  place;
+  (``csrc/flash_attention.cu``): the query rows in 64-row sub-tiles,
+  each warp of a 4-warp block owning 16 rows, one block per (batch·head,
+  ``block_q`` rows: ``ceil(block_q / 64)`` sub-tiles dealt in snake
+  order, so causal blocks carry equal work); K/V chunks of at most 64
+  keys come by ``cp.async`` into a 2-stage shared-memory ring, the kv
+  head read as ``h // (Hq // Hkv)`` in place.  bf16 runs Q·Kᵀ and P·V
+  on the tensor cores (``wgmma``, the 64-row sub-tile a warpgroup's
+  tile, f32 accumulation); float32 runs them as float32 FMAs on the
+  CUDA cores (TF32 would miss the 2e-4 tolerance).  Scores never leave
+  registers;
 * :func:`flash_attention_plain` is the same online softmax in torch ops
   over the same key tiles of ``block_k`` columns, all query rows at once
   — what a CPU tensor runs, and what the kernel is held against on the
@@ -15,7 +21,13 @@ Two versions of one function over q (B, S, Hq, d) and k, v
 
 Both keep the reference's ``NEG_INF = -1e30`` mask value and its
 ``max(l, 1e-30)`` floor, and neither depends on ``block_q`` for its
-result: it only moves rows between thread blocks.
+result: it only moves rows between thread blocks.  ``block_k`` is the
+plain version's online-softmax tile; in the kernel it sets where the
+key chunks break: each tile of ``block_k`` keys is cut into chunks of
+64 from its start (the last one narrower), and the online-softmax step
+runs once per chunk.  So the kernel and the plain version agree to
+rounding (a max over 64 keys in place of ``block_k``), and ``block_k``
+64 gives both the same tiles.
 """
 
 from __future__ import annotations
@@ -58,6 +70,9 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if batch == 0 or s == 0:
         return out
+    # the kernel copies 16-byte pieces: a view at an odd offset is copied
+    # to fresh (aligned) storage first
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = library().rimms_flash_attention(

@@ -20,7 +20,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     are clamped to S, as the reference clamps them; ``block_q`` tunes
     query rows per thread block (bit-identical across values), and
     ``block_k`` is the online softmax's key tile (at most 512 after the
-    clamp).  K/V are never repeated in device memory for GQA."""
+    clamp): the plain version's tile, and in the kernel the tile that
+    its chunks of at most 64 keys never cross.  K/V are never repeated
+    in device memory for GQA."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"flash_attention takes torch.Tensors, {name} "

@@ -88,21 +88,35 @@ def test_main_path_runs_on_kernels(cuda):
                                rtol=1e-3, atol=1e-3 * math.sqrt(1024))
 
 
-@pytest.mark.parametrize("B,S,Hq,Hkv,d,bk,dtype,causal", [
-    (2, 256, 4, 2, 64, 128, torch.float32, True),
-    (1, 512, 2, 1, 128, 256, torch.float32, True),
-    (2, 128, 4, 4, 64, 64, torch.bfloat16, True),
-    (1, 384, 2, 2, 64, 128, torch.float32, True),
-    (1, 300, 4, 1, 128, 100, torch.float32, False),
-])
+#: tests/test_kernels.py's sweep in both dtypes, the ragged S = 300
+#: non-causal case with block_k 100, and S not a multiple of 16 or 64
+FLASH_CASES = [
+    (B, S, Hq, Hkv, d, bk, dt, causal)
+    for B, S, Hq, Hkv, d, bk, causal in (
+        (2, 256, 4, 2, 64, 128, True),
+        (1, 512, 2, 1, 128, 256, True),
+        (2, 128, 4, 4, 64, 64, True),
+        (1, 384, 2, 2, 64, 128, True),
+        (1, 300, 4, 1, 128, 100, False),
+        (1, 300, 4, 1, 128, 100, True),
+        (2, 197, 4, 2, 64, 64, True),
+        (1, 77, 2, 2, 128, 512, False))
+    for dt in (torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,d,bk,dtype,causal", FLASH_CASES)
 def test_flash_attention_kernel_matches_plain(cuda, B, S, Hq, Hkv, d, bk,
                                               dtype, causal):
+    """Against the plain version at the same block_k (2e-4 in float32,
+    2e-2 in bf16), and bit-identical across block_q 128/256/512."""
     gen = torch.Generator(device=cuda).manual_seed(S)
     q, k, v = (torch.randn(B, S, h, d, device=cuda, generator=gen).to(dtype)
                for h in (Hq, Hkv, Hkv))
     before = FA.launches
     got = flash_ops.flash_attention(q, k, v, causal=causal, block_k=bk)
+    torch.cuda.synchronize()
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-4
+    assert torch.isfinite(got).all()
     torch.testing.assert_close(
         got.float(), FA.flash_attention_plain(
             q, k, v, causal=causal, block_k=min(bk, S)).float(),
@@ -177,11 +191,15 @@ def test_autotune_dispatches_kernels_on_gpu(cuda):
     (4, 8, 2, 64, 32, 16, 6, torch.float32),
     (1, 2, 1, 128, 8, 4, 2, torch.float32),
     (3, 32, 8, 128, 96, 16, 32, torch.bfloat16),
+    (2, 21, 1, 192, 64, 16, 32, torch.bfloat16),
+    (2, 34, 2, 240, 64, 16, 32, torch.float32),
+    (3, 9, 3, 72, 32, 8, 12, torch.float32),
 ])
 def test_paged_attention_kernel_matches_plain(cuda, B, hq, hkv, d, P, page,
                                               npg, dtype):
-    """tests/test_kernels.py's sweep and a llama3-8b-width case; row 0 of
-    length 0 (the uniform mean of V), never NaN."""
+    """tests/test_kernels.py's sweep, a llama3-8b-width case and odd
+    groups up to (Hq / Hkv) * d = 4096; row 0 of length 0 (the uniform
+    mean of V), never NaN."""
     gen = torch.Generator(device=cuda).manual_seed(P)
     q = torch.randn(B, hq, d, device=cuda, generator=gen).to(dtype)
     kp, vp = (torch.randn(P, page, hkv, d, device=cuda,
@@ -234,3 +252,54 @@ def test_serving_engines_launch_the_kernel(cuda):
             assert eng.kv.used_pages == 1
             eng.close()
     assert streams[0] == streams[1]
+
+
+def _serving_paged_inputs(cuda, lengths, seed=0):
+    """The serving path's shapes: B 4, Hq 32, Hkv 8, d 128, 16-token
+    pages, 32-page tables, bf16."""
+    B, npg = len(lengths), 32
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(B, 32, 128, device=cuda, generator=gen).bfloat16()
+    kp, vp = (torch.randn(B * npg, 16, 8, 128, device=cuda,
+                          generator=gen).bfloat16() for _ in range(2))
+    bt = torch.randperm(B * npg, device=cuda,
+                        generator=gen).reshape(B, npg).int()
+    return q, kp, vp, bt, torch.tensor(lengths, dtype=torch.int32,
+                                       device=cuda)
+
+
+def test_paged_attention_row_is_bit_equal_whatever_the_other_rows(cuda):
+    """Lengths [100, 0, 0, 0] (a teacher-forced prefill step) and
+    [100, 37, 5, 0]: every row within tolerance of the plain version, and
+    row 0 bit-equal across the two (what keeps the serving engines'
+    tokens equal)."""
+    outs = []
+    for lengths in ([100, 0, 0, 0], [100, 37, 5, 0]):
+        q, kp, vp, bt, ln = _serving_paged_inputs(cuda, lengths)
+        got = pa_ops.paged_attention(q, kp, vp, bt, ln)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(
+            got.float(), PA.paged_attention_plain(q, kp, vp, bt, ln).float(),
+            rtol=2e-2, atol=2e-2)
+        outs.append(got)
+    assert torch.equal(outs[0][0], outs[1][0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_lengths_at_split_edges(cuda, dtype):
+    """Lengths on a split boundary, one past it, one short of it, in the
+    last page and at the table's end, against the plain version."""
+    npg, page = 32, 16
+    pps, _ = PA.split_plan(npg, page)
+    edge = pps * page
+    lengths = [edge, edge + 1, edge - 1, 2 * edge, (npg - 1) * page + 3,
+               npg * page, 1, 0]
+    q, kp, vp, bt, ln = _serving_paged_inputs(cuda, lengths, seed=1)
+    q, kp, vp = (t.to(dtype) for t in (q, kp, vp))
+    got = pa_ops.paged_attention(q, kp, vp, bt, ln)
+    torch.cuda.synchronize()
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-4
+    torch.testing.assert_close(
+        got.float(), PA.paged_attention_plain(q, kp, vp, bt, ln).float(),
+        rtol=tol, atol=tol)
