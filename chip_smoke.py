@@ -7,8 +7,11 @@ Phases, each of which raises (exit code 1) on a failed check:
 1. card — the GPU's name and power limit (``nvidia-smi``);
 2. build — compiles ``src/repro_torch/csrc/*.cu`` with nvcc (sm_90a);
 3. kernels — every CUDA kernel against its plain torch version on the
-   card: FFT and ZIP across the radar path's shapes, at a fragment's
-   storage offset and across ``block_rows``; flash attention, RG-LRU
+   card: FFT at every power of two from 2 to 8192 in 1, 3, 128 and 1024
+   rows, forward and inverse (and against ``torch.fft``), ZIP across the
+   radar path's shapes, both at fragments' storage offsets (odd ones
+   too, and ZIP operands at different 16-byte phases), inputs unwritten
+   and ``block_rows`` bit-identical; flash attention, RG-LRU
    and mLSTM at the reference's test shapes and tolerances
    (``tests/test_kernels.py``) and at the widths of the repo's model
    configs (llama3-8b, recurrentgemma-2b, xlstm-350m), with ``block_q``
@@ -16,11 +19,17 @@ Phases, each of which raises (exit code 1) on a failed check:
 4. timing — each kernel, its plain version and the one-call PyTorch
    equivalent where there is one (CUDA events, device time from
    ``torch.profiler``), beside the least time the card could take
-   (bytes, or operations at the peak for the input type);
+   (bytes, or operations at the peak for the input type); FFT and ZIP
+   at the radar path's one-row sizes (and FFT at 8192 and 1024 rows of
+   1024) with, for the kernel and the library call alike, the latency
+   of one call and a synchronise (what a runtime task pays), the host's
+   enqueue time and the device time;
 5. main path — the paper's radar evaluation (2FFT, 2FZF, 3ZIP, RC, PD,
    SAR, and a streaming Session) under the ``reference`` and ``rimms``
    memory policies on ``cuda:0``, checked against numpy's FFT chain and
-   the paper's copy counts;
+   the paper's copy counts; each record logs the runtime's measured
+   compute seconds per fft/ifft/zip task (its cost model's
+   observations) beside the wall and the kernel share;
 6. launch counts — every FFT/IFFT and ZIP task placed on a GPU PE in
    phase 5 launched its kernel exactly once;
 7. autotuning path — ``repro_torch.rimms.autotune`` on a session with a
@@ -95,7 +104,10 @@ SERVE = dict(max_batch=4, page_size=16, num_pages=512, max_pages_per_seq=32,
              pages_per_group=8)
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 8, (32, 129), 32
 
-FFT_TIMED_N = (128, 256, 512, 2048)
+# (rows, N): the radar path's one-row FFTs, one row at the kernel's
+# largest N, and the autotuner's 8 MiB rung (1024 rows of 1024)
+FFT_TIMED = ((1, 128), (1, 256), (1, 512), (1, 2048), (1, 8192),
+             (1024, 1024))
 ZIP_TIMED_N = (128, 256, 512, 131072)
 REPS = 5  # wall-time runs per main-path configuration and policy (median)
 POLICIES = ("reference", "rimms")
@@ -169,11 +181,12 @@ def phase_kernels(dev):
                            generator=gen)
 
     errs = {"fft": 0.0, "zip": 0.0}
-    for n in (2, 8, 64, 128, 256, 512, 1024, 2048, 8192):
+    for n in (2 ** p for p in range(1, 14)):
         rtol, atol = fft_tol(n)
         worst_plain = worst_lib = 0.0
-        for rows in (1, 3, 128):
+        for rows in (1, 3, 128, 1024):
             x = crandn(rows, n)
+            before = x.clone()
             for fwd in (True, False):
                 got = fft_ops.fft(x, fwd)
                 torch.cuda.synchronize()
@@ -184,27 +197,44 @@ def phase_kernels(dev):
                 lib = torch.fft.fft(x) if fwd else torch.fft.ifft(x)
                 worst_lib = max(worst_lib, close(got, lib, rtol, atol,
                                                  what + " vs torch.fft"))
-            for br in (32, 128):
-                if not torch.equal(fft_ops.fft(x, block_rows=br),
-                                   fft_ops.fft(x)):
-                    raise AssertionError(f"fft n={n} rows={rows}: "
-                                         f"block_rows={br} not bit-identical")
-        log(f"[kernels] fft n={n}: max|err| vs plain {worst_plain:.3e}, "
-            f"vs torch.fft {worst_lib:.3e} (rtol {rtol}, atol {atol:.2e}); "
-            f"block_rows 8/32/128 bit-identical")
+                for br in (32, 128):
+                    if not torch.equal(fft_ops.fft(x, fwd, block_rows=br),
+                                       got):
+                        raise AssertionError(f"{what}: block_rows={br} not "
+                                             f"bit-identical")
+            if not torch.equal(x, before):
+                raise AssertionError(f"fft n={n} rows={rows} wrote its input")
+        log(f"[kernels] fft n={n} rows 1/3/128/1024 fwd+inv: max|err| vs "
+            f"plain {worst_plain:.3e}, vs torch.fft {worst_lib:.3e} (rtol "
+            f"{rtol}, atol {atol:.2e}); block_rows 8/32/128 bit-identical; "
+            f"input unwritten")
         errs["fft"] = max(errs["fft"], worst_plain)
-    # a fragment: a view at a nonzero storage offset
-    base = crandn(4 * 256)
-    frag = base[256:512]
+    # fragments: views at a nonzero storage offset, one at an odd element
+    # (8 bytes past a 16-byte boundary) and rows of a 2-D view
+    base = crandn(4 * 2048 + 1)
     before = base.clone()
-    e = close(fft_ops.fft(frag), F.fft_plain(frag.reshape(1, -1)).reshape(-1),
-              *fft_tol(256), "fft fragment view")
+    for what, frag in (("offset 256", base[256:512]),
+                       ("odd offset 1", base[1:2049]),
+                       ("odd offset 3, 3 rows", base[3:3 + 3 * 512]
+                        .view(3, 512))):
+        n, e = frag.shape[-1], 0.0
+        for fwd in (True, False):
+            got = fft_ops.fft(frag, fwd)
+            want = F.fft_plain(frag.reshape(-1, n), inverse=not fwd)
+            e = max(e, close(got.reshape(-1, n), want, *fft_tol(n),
+                             f"fft fragment view ({what})"))
+            errs["fft"] = max(errs["fft"], e)
+            for br in (32, 128):
+                if not torch.equal(fft_ops.fft(frag, fwd, block_rows=br),
+                                   got):
+                    raise AssertionError(f"fft fragment view ({what}): "
+                                         f"block_rows={br} not "
+                                         f"bit-identical")
+        log(f"[kernels] fft fragment view ({what}): max|err| {e:.3e}")
     if not torch.equal(base, before):
         raise AssertionError("fft wrote into its input")
-    errs["fft"] = max(errs["fft"], e)
-    log(f"[kernels] fft fragment view (offset 256): max|err| {e:.3e}")
 
-    for shape in ((64,), (3, 300), (2, 5, 129), (131072,)):
+    for shape in ((1,), (2,), (64,), (3, 300), (2, 5, 129), (131072,)):
         a, b = crandn(*shape), crandn(*shape)
         got = zip_ops.zip_mul(a, b)
         e = close(got, Z.zip_plain(a, b), 1e-5, 1e-5, f"zip {shape}")
@@ -216,12 +246,25 @@ def phase_kernels(dev):
         errs["zip"] = max(errs["zip"], e)
         log(f"[kernels] zip {shape}: max|err| vs plain {e:.3e} (tol 1e-5); "
             f"block_rows 256/1024/4096 bit-identical")
-    base_a, base_b = crandn(3 * 512), crandn(3 * 512)
-    fa, fb = base_a[512:1024], base_b[1024:]
-    e = close(zip_ops.zip_mul(fa, fb), Z.zip_plain(fa, fb), 1e-5, 1e-5,
-              "zip fragment views")
-    errs["zip"] = max(errs["zip"], e)
-    log(f"[kernels] zip fragment views (offsets 512, 1024): max|err| {e:.3e}")
+    # views at every pair of 8-byte phases (a and b at different 16-byte
+    # phases), odd offsets, odd lengths; the inputs stay unwritten
+    base_a, base_b = crandn(3 * 512 + 8), crandn(3 * 512 + 8)
+    keep_a, keep_b = base_a.clone(), base_b.clone()
+    for oa, ob, n in ((512, 1024, 512), (1, 0, 512), (0, 1, 511),
+                      (1, 1, 1001), (3, 6, 1), (5, 2, 1537)):
+        fa, fb = base_a[oa:oa + n], base_b[ob:ob + n]
+        got = zip_ops.zip_mul(fa, fb)
+        e = close(got, Z.zip_plain(fa, fb), 1e-5, 1e-5,
+                  f"zip fragment views (offsets {oa}, {ob}, n {n})")
+        for br in (1024, 4096):
+            if not torch.equal(zip_ops.zip_mul(fa, fb, block_rows=br), got):
+                raise AssertionError(f"zip fragment views ({oa}, {ob}, {n}):"
+                                     f" block_rows={br} not bit-identical")
+        errs["zip"] = max(errs["zip"], e)
+        log(f"[kernels] zip fragment views (offsets {oa}, {ob}, n {n}): "
+            f"max|err| {e:.3e}; block_rows bit-identical")
+    if not (torch.equal(base_a, keep_a) and torch.equal(base_b, keep_b)):
+        raise AssertionError("zip wrote into its inputs")
     torch.cuda.synchronize()
     return errs
 
@@ -287,7 +330,84 @@ def _bound(nbytes: float, flops: float, peak: float = PEAK_FP32_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _sync_ms(fn, iters: int = 400, warmup: int = 20) -> float:
+    """What a runtime task pays for one call: the median host-clock time
+    of the call followed by ``torch.cuda.synchronize()``."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e3
+
+
+def _enqueue_ms(fn, iters: int = 200) -> float:
+    """The host's share of a call: the host clock over ``iters`` calls
+    with no synchronisation between them, over the count."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / iters * 1e3
+
+
+def _device_ms_all(fn, iters: int = 50):
+    """Device time of one call of ``fn``, summed over every kernel and
+    copy the profiler saw on the card in the window (a library call's
+    kernels carry names of their own), and the number of them a call
+    launches; (None, None) when the profiler records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = [ev.time_range.elapsed_us() for ev in prof.events()
+              if ev.device_type == DeviceType.CUDA]
+    except Exception as e:  # a measurement, not a check: report absent
+        log(f"[timing] profiler unavailable ({type(e).__name__}: {e})")
+        return None, None
+    if not us:
+        return None, None
+    return sum(us) / iters / 1e3, len(us) / iters
+
+
+def _call_record(kernel_fn, kernel_name, library_fn, iters):
+    """A kernel's and its library call's times at one shape: pipelined
+    call (CUDA events), one call + synchronise (median), enqueue (host
+    clock, no synchronisation) and device time (profiler)."""
+    lib_dev, lib_kernels = _device_ms_all(library_fn)
+    return {
+        "kernel_ms": _time_ms(kernel_fn, iters),
+        "kernel_sync_ms": _sync_ms(kernel_fn),
+        "kernel_enqueue_ms": _enqueue_ms(kernel_fn),
+        "kernel_device_ms": _device_ms(kernel_fn, kernel_name),
+        "library_ms": _time_ms(library_fn, iters),
+        "library_sync_ms": _sync_ms(library_fn),
+        "library_enqueue_ms": _enqueue_ms(library_fn),
+        "library_device_ms": lib_dev,
+        "library_device_kernels_per_call": lib_kernels,
+    }
+
+
 def phase_timing(dev):
+    """FFT and ZIP at the radar path's one-row shapes (and the FFT at
+    8192 and at the autotuner's 8 MiB rung, 1024 rows of 1024): the
+    kernel and its library call (``torch.fft.fft``, ``a * b``) each by
+    :func:`_call_record`, the plain version's pipelined time and the
+    bound."""
     from repro_torch.kernels.fft import fft as F
     from repro_torch.kernels.fft import ops as fft_ops
     from repro_torch.kernels.zip import ops as zip_ops
@@ -295,34 +415,28 @@ def phase_timing(dev):
 
     gen = torch.Generator(device=dev).manual_seed(1)
     rows = []
-    for n in FFT_TIMED_N:
-        x = torch.randn(1, n, dtype=torch.complex64, device=dev,
+    for nrows, n in FFT_TIMED:
+        x = torch.randn(nrows, n, dtype=torch.complex64, device=dev,
                         generator=gen)
-        bound_ms, bound_by = _bound(16.0 * n, 5.0 * n * math.log2(n))
-        rec = {
-            "kernel": "fft", "rows": 1, "n": n,
-            "kernel_ms": _time_ms(lambda: fft_ops.fft(x), 2000),
-            "kernel_device_ms": _device_ms(lambda: fft_ops.fft(x),
-                                           "stockham_fft_kernel"),
-            "plain_ms": _time_ms(lambda: F.fft_plain(x), 200),
-            "library_ms": _time_ms(lambda: torch.fft.fft(x), 2000),
-            "bound_ms": bound_ms, "bound_by": bound_by,
-        }
+        bound_ms, bound_by = _bound(16.0 * nrows * n,
+                                    5.0 * nrows * n * math.log2(n))
+        rec = {"kernel": "fft", "rows": nrows, "n": n,
+               **_call_record(lambda: fft_ops.fft(x), "fft",
+                              lambda: torch.fft.fft(x), 2000 // nrows + 50),
+               "plain_ms": _time_ms(lambda: F.fft_plain(x),
+                                    max(200 // nrows, 5), warmup=3),
+               "bound_ms": bound_ms, "bound_by": bound_by}
         rows.append(rec)
         log("[timing] " + json.dumps(rec))
     for n in ZIP_TIMED_N:
         a = torch.randn(n, dtype=torch.complex64, device=dev, generator=gen)
         b = torch.randn(n, dtype=torch.complex64, device=dev, generator=gen)
         bound_ms, bound_by = _bound(24.0 * n, 6.0 * n)
-        rec = {
-            "kernel": "zip", "n": n,
-            "kernel_ms": _time_ms(lambda: zip_ops.zip_mul(a, b), 2000),
-            "kernel_device_ms": _device_ms(lambda: zip_ops.zip_mul(a, b),
-                                           "zip_kernel"),
-            "plain_ms": _time_ms(lambda: Z.zip_plain(a, b), 2000),
-            "library_ms": _time_ms(lambda: a * b, 2000),
-            "bound_ms": bound_ms, "bound_by": bound_by,
-        }
+        rec = {"kernel": "zip", "rows": 1, "n": n,
+               **_call_record(lambda: zip_ops.zip_mul(a, b), "zip",
+                              lambda: a * b, 2000),
+               "plain_ms": _time_ms(lambda: Z.zip_plain(a, b), 2000),
+               "bound_ms": bound_ms, "bound_by": bound_by}
         rows.append(rec)
         log("[timing] " + json.dumps(rec))
     return rows
@@ -784,16 +898,34 @@ def _compare(build, counter, *, device, accelerators=("gpu0",), n_cpu=1,
             last[policy] = (rt, ctx, bufs, wall)
     out = {}
     for policy, (rt, ctx, bufs, wall) in last.items():
-        compute = sum(ev.compute_s for ev in rt.timeline.events())
+        events = rt.timeline.events()
+        compute = sum(ev.compute_s for ev in events)
         rec = {"wall_s": statistics.median(walls[policy]),
                "copies": ctx.ledger.total_copies,
                "bytes": {f"{s}->{d}": b for (s, d), b
                          in sorted(ctx.ledger.bytes_moved.items())},
                "model_s": rt.last_makespan_model,
                "tasks": len(rt.task_log),
-               "kernel_share": compute / max(wall, 1e-12)}
+               "kernel_share": compute / max(wall, 1e-12),
+               "task_compute_us": _task_compute_us(events)}
         out[policy] = (rec, ctx, bufs)
     return out
+
+
+def _task_compute_us(events):
+    """The runtime's measured compute seconds (what its cost model
+    observes: the kernel call and the wait for its stream) of each
+    fft/ifft/zip task on a device PE, per op: count, median and mean in
+    µs."""
+    by_op = collections.defaultdict(list)
+    for ev in events:
+        if ev.pe.startswith("cpu"):
+            continue
+        op = next(o for o in ("ifft", "fft", "zip") if ev.task.startswith(o))
+        by_op[op].append(ev.compute_s * 1e6)
+    return {op: {"tasks": len(v), "median_us": statistics.median(v),
+                 "mean_us": statistics.fmean(v)}
+            for op, v in sorted(by_op.items())}
 
 
 def _report(app, res):
@@ -806,6 +938,7 @@ def _report(app, res):
             "wall_s": r["wall_s"], "copies": r["copies"],
             "bytes_by_pair": r["bytes"], "makespan_model_s": r["model_s"],
             "tasks": r["tasks"], "kernel_share": r["kernel_share"],
+            "task_compute_us": r.get("task_compute_us"),
         }
     log("[main] " + json.dumps(rec))
     return rec
@@ -919,12 +1052,15 @@ def phase_main(device, *, fft_sizes=(64, 128, 256, 512, 1024, 2048),
                                         c["b"].data.copy()),
                            session_n, f"session chain {i}")
             counter.add(s.runtime.task_log)
+            rep = s.report()
             res[policy] = {
                 "wall_s": wall, "copies": s.ledger.total_copies,
                 "bytes": {f"{a}->{b}": v for (a, b), v
                           in sorted(s.ledger.bytes_moved.items())},
-                "model_s": s.report()["makespan_model"],
+                "model_s": rep["makespan_model"],
                 "tasks": len(s.runtime.task_log), "kernel_share": None,
+                "task_compute_us": _task_compute_us(
+                    rep["timeline"].events()),
             }
         s.runtime.close()
     results.append(_report(f"session_2fzf_{session_chains}x{session_n}", res))
@@ -1457,6 +1593,11 @@ def main() -> int:
             "timed_shape": shape or f"{t['shape']} {t['dtype']}",
             **({"library_call": t["library_call"]}
                if "library_call" in t else {}),
+            # FFT and ZIP: what a runtime task pays (one call then a
+            # synchronise), the host's share, the library's device time
+            **{k: t[k] for k in ("kernel_sync_ms", "kernel_enqueue_ms",
+                                 "library_sync_ms", "library_enqueue_ms",
+                                 "library_device_ms") if k in t},
         })
     log("[serve] summary " + json.dumps({"engines": serving,
                                          "step_profiles": step_profile}))

@@ -9,8 +9,14 @@ edited source rebuilds.  The first use builds, under a lock: callers
 that time kernels (the runtime's cost model, ``chip_smoke.py``) load the
 library before they time anything.
 
+Every wrapper launches through :func:`launch`, which hands the C entry
+point the raw ``cudaStream_t`` of the tensor's device's current stream
+(no ``torch.cuda.Stream`` object) and enters a device guard only when
+that device is not the current one.
+
 Nothing here runs at import: this module imports on a machine without
-``nvcc`` or a GPU, and only :func:`library` needs them.
+``nvcc`` or a GPU, and only :func:`library` and :func:`launch` need
+them.
 """
 
 from __future__ import annotations
@@ -26,8 +32,10 @@ import time
 from pathlib import Path
 from typing import Optional
 
-__all__ = ["library", "check", "CSRC", "BUILD_DIR", "ARCH_FLAGS",
-           "build_seconds", "build_log"]
+import torch
+
+__all__ = ["library", "check", "launch", "raw_stream", "CSRC", "BUILD_DIR",
+           "ARCH_FLAGS", "build_seconds", "build_log"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -105,7 +113,7 @@ def _build(srcs, target: Path) -> str:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     f32 = ctypes.c_float
-    lib.rimms_fft_c64.argtypes = [p, p, i64, i32, i32, i32, p]
+    lib.rimms_fft_c64.argtypes = [p, p, p, p]
     lib.rimms_zip_c64.argtypes = [p, p, p, i64, i32, p]
     lib.rimms_rg_lru_f32.argtypes = [p, p, p, p, p, i32, i32, i32, i32, p]
     lib.rimms_flash_attention.argtypes = [p, p, p, p] + [i32] * 9 + [f32, p]
@@ -139,3 +147,22 @@ def check(status: int, name: str) -> None:
     """Raise if a C entry point returned a CUDA error code."""
     if status != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {status}")
+
+
+def raw_stream(t: torch.Tensor) -> int:
+    """The raw ``cudaStream_t`` of the current stream on CUDA tensor
+    ``t``'s device, as PyTorch's own generated launchers read it (no
+    ``torch.cuda.Stream`` object is built)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+def launch(fn, t: torch.Tensor, *args) -> int:
+    """Call the C entry point ``fn(*args, stream)`` with ``stream`` the
+    :func:`raw_stream` of CUDA tensor ``t``'s device, under a device guard
+    only when that device is not the current one (a kernel launches on
+    the current device).  Returns ``fn``'s status for :func:`check`."""
+    index = t.get_device()
+    if index == torch._C._cuda_getDevice():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))

@@ -27,14 +27,12 @@ def fft(x: torch.Tensor, forward: bool = True, *,
             f"fft length {n} unsupported: a power of two from 2 to {MAX_N}")
     if not x.is_contiguous():
         raise ValueError("fft takes a contiguous tensor")
-    if int(block_rows) < 1:
+    br = int(block_rows)
+    if br < 1:
         raise ValueError(f"block_rows must be positive, got {block_rows}")
-    rows = x.numel() // n
-    xf = x.reshape(rows, n)
-    if x.is_cuda:
-        out = fft_kernel(xf, inverse=not forward, block_rows=int(block_rows))
-    elif x.device.type == "cpu":
-        out = fft_plain(xf, inverse=not forward)
-    else:
-        raise ValueError(f"fft has no kernel for device {x.device}")
-    return out.reshape(x.shape)
+    if x.is_cuda:  # the kernel takes x's shape as it is: no reshape
+        return fft_kernel(x, inverse=not forward, block_rows=br)
+    if x.device.type == "cpu":
+        out = fft_plain(x.reshape(x.numel() // n, n), inverse=not forward)
+        return out.reshape(x.shape)
+    raise ValueError(f"fft has no kernel for device {x.device}")

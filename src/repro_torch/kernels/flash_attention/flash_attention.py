@@ -38,7 +38,7 @@ import threading
 
 import torch
 
-from .._build import check, library
+from .._build import check, launch, library
 
 __all__ = ["BLOCK_Q", "BLOCK_K", "MAX_BLOCK_K", "HEAD_DIMS", "NEG_INF",
            "flash_attention_kernel", "flash_attention_plain", "launches"]
@@ -73,14 +73,11 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # the kernel copies 16-byte pieces: a view at an odd offset is copied
     # to fresh (aligned) storage first
     q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        status = library().rimms_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            batch, s, hq, k.shape[2], d, _DTYPE_CODE[q.dtype], int(causal),
-            int(block_q), int(block_k), ctypes.c_float(1.0 / math.sqrt(d)),
-            stream)
-    check(status, "flash_attention")
+    check(launch(library().rimms_flash_attention, q, q.data_ptr(),
+                 k.data_ptr(), v.data_ptr(), out.data_ptr(), batch, s, hq,
+                 k.shape[2], d, _DTYPE_CODE[q.dtype], int(causal),
+                 int(block_q), int(block_k),
+                 ctypes.c_float(1.0 / math.sqrt(d))), "flash_attention")
     with _count_lock:
         launches += 1
     return out

@@ -24,7 +24,7 @@ import threading
 
 import torch
 
-from .._build import check, library
+from .._build import check, launch, library
 
 __all__ = ["CHUNK", "MAX_CHUNK", "MAX_M", "mlstm_kernel", "mlstm_plain",
            "launches"]
@@ -52,13 +52,10 @@ def mlstm_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if batch == 0 or s == 0:
         return out
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        status = library().rimms_mlstm_f32(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), i_gate.data_ptr(),
-            log_f.data_ptr(), out.data_ptr(), batch, s, h, m, int(chunk),
-            ctypes.c_float(math.sqrt(m)), stream)
-    check(status, "mlstm")
+    check(launch(library().rimms_mlstm_f32, q, q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), i_gate.data_ptr(), log_f.data_ptr(),
+                 out.data_ptr(), batch, s, h, m, int(chunk),
+                 ctypes.c_float(math.sqrt(m))), "mlstm")
     with _count_lock:
         launches += 1
     return out

@@ -28,7 +28,7 @@ import threading
 
 import torch
 
-from .._build import check, library
+from .._build import check, launch, library, raw_stream
 from .ref import paged_attention as paged_attention_plain
 
 __all__ = ["MAX_HEAD_DIM", "MAX_GROUP_ELEMS", "MAX_SPLITS", "SPLIT_POSITIONS",
@@ -89,25 +89,23 @@ def paged_attention_kernel(q: torch.Tensor, k_pages: torch.Tensor,
     # count of the splits done, from which the last one knows it is last
     # (and sets the count back to 0)
     n_ws = batch * hkv * n_splits * (hq // hkv) * (d + 2)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        key = (q.device.index, stream)
-        with _count_lock:
-            workspace, counters = _scratch.get(key, (None, None))
-            if workspace is None or workspace.numel() < n_ws:
-                workspace = torch.empty(n_ws, dtype=torch.float32,
-                                        device=q.device)
-            if counters is None or counters.numel() < batch * hkv:
-                counters = torch.zeros(batch * hkv, dtype=torch.int32,
-                                       device=q.device)
-            _scratch[key] = workspace, counters
-        status = library().rimms_paged_attention(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            workspace.data_ptr(), counters.data_ptr(), batch, hq, hkv, d,
-            n_pages_pool, page, n_pages, pps, n_splits, _DTYPE_CODE[q.dtype],
-            ctypes.c_float(math.sqrt(d)), stream)
-    check(status, "paged_attention")
+    key = (q.get_device(), raw_stream(q))
+    with _count_lock:
+        workspace, counters = _scratch.get(key, (None, None))
+        if workspace is None or workspace.numel() < n_ws:
+            workspace = torch.empty(n_ws, dtype=torch.float32,
+                                    device=q.device)
+        if counters is None or counters.numel() < batch * hkv:
+            counters = torch.zeros(batch * hkv, dtype=torch.int32,
+                                   device=q.device)
+        _scratch[key] = workspace, counters
+    check(launch(library().rimms_paged_attention, q, q.data_ptr(),
+                 k_pages.data_ptr(), v_pages.data_ptr(),
+                 block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                 workspace.data_ptr(), counters.data_ptr(), batch, hq, hkv,
+                 d, n_pages_pool, page, n_pages, pps, n_splits,
+                 _DTYPE_CODE[q.dtype], ctypes.c_float(math.sqrt(d))),
+          "paged_attention")
     with _count_lock:
         launches += 1
     return out

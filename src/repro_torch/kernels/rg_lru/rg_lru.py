@@ -20,7 +20,7 @@ import threading
 
 import torch
 
-from .._build import check, library
+from .._build import check, launch, library
 
 __all__ = ["LANES", "rg_lru_kernel", "rg_lru_plain", "launches"]
 
@@ -45,12 +45,9 @@ def rg_lru_kernel(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor, *,
     hn = torch.empty_like(h0)
     if batch == 0 or d == 0:
         return hs, hn
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        status = library().rimms_rg_lru_f32(
-            a.data_ptr(), b.data_ptr(), h0.data_ptr(), hs.data_ptr(),
-            hn.data_ptr(), batch, s, d, int(block_lanes), stream)
-    check(status, "rg_lru")
+    check(launch(library().rimms_rg_lru_f32, a, a.data_ptr(), b.data_ptr(),
+                 h0.data_ptr(), hs.data_ptr(), hn.data_ptr(), batch, s, d,
+                 int(block_lanes)), "rg_lru")
     with _count_lock:
         launches += 1
     return hs, hn

@@ -24,12 +24,13 @@ def zip_mul(a: torch.Tensor, b: torch.Tensor, *,
     if a.shape != b.shape:
         raise ValueError(f"zip_mul shapes differ: {tuple(a.shape)} vs "
                          f"{tuple(b.shape)}")
+    br = int(block_rows)
+    if br < 1:
+        raise ValueError(f"block_rows must be positive, got {block_rows}")
+    if a.is_cuda and b.is_cuda and a.get_device() == b.get_device():
+        return zip_kernel(a, b, block_rows=br)
     if a.device != b.device:
         raise ValueError(f"zip_mul devices differ: {a.device} vs {b.device}")
-    if int(block_rows) < 1:
-        raise ValueError(f"block_rows must be positive, got {block_rows}")
-    if a.is_cuda:
-        return zip_kernel(a, b, block_rows=int(block_rows))
     if a.device.type == "cpu":
         return zip_plain(a, b)
     raise ValueError(f"zip_mul has no kernel for device {a.device}")

@@ -3,8 +3,9 @@
 Two versions of one function over complex64 tensors of one shape:
 
 * :func:`zip_kernel` launches the hand-written CUDA kernel
-  (``csrc/zip.cu``): a grid-stride loop over interleaved float2, with
-  no padding;
+  (``csrc/zip.cu``): a grid-stride loop over interleaved complex64, two
+  elements a thread with 16-byte loads and stores, views at any element
+  handled inside the kernel, no padding;
 * :func:`zip_plain` writes the product out in re/im form in torch ops —
   what a CPU tensor runs, and what the kernel is held against on the
   card.
@@ -16,12 +17,13 @@ import threading
 
 import torch
 
-from .._build import check, library
+from .._build import check, launch, library
 
 __all__ = ["BLOCK_ROWS", "zip_kernel", "zip_plain", "launches"]
 
-#: elements per thread block (a pure launch parameter: the op is
-#: elementwise, so every value gives bit-identical output)
+#: elements a thread block covers per step of its loop, at least 512 (a
+#: pure launch parameter: the op is elementwise, so every value gives
+#: bit-identical output)
 BLOCK_ROWS = 256
 
 #: kernel launches since the count was last set to 0
@@ -36,14 +38,11 @@ def zip_kernel(a: torch.Tensor, b: torch.Tensor, *,
     the current stream and does not wait."""
     global launches
     out = torch.empty_like(a)
-    if a.numel() == 0:
+    n = a.numel()
+    if n == 0:
         return out
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        status = library().rimms_zip_c64(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel(),
-            int(block_rows), stream)
-    check(status, "zip")
+    check(launch(library().rimms_zip_c64, a, a.data_ptr(), b.data_ptr(),
+                 out.data_ptr(), n, block_rows), "zip")
     with _count_lock:
         launches += 1
     return out

@@ -73,6 +73,67 @@ def test_zip_kernel_matches_plain(cuda, shape):
     assert Z.launches == before + 2
 
 
+@pytest.mark.parametrize("n", [2 ** p for p in range(1, 14)])
+def test_fft_kernel_every_length_and_rows(cuda, n):
+    """Every power of two from 2 to 8192 in 1, 3, 128 and 1024 rows,
+    forward and inverse, against the plain version; block_rows 8/32/128
+    bit-identical; the input left unwritten."""
+    gen = torch.Generator(device=cuda).manual_seed(n + 1)
+    rtol, atol = fft_tol(n)
+    for rows in (1, 3, 128, 1024):
+        x = torch.randn(rows, n, dtype=torch.complex64, device=cuda,
+                        generator=gen)
+        before = x.clone()
+        for fwd in (True, False):
+            got = fft_ops.fft(x, fwd)
+            torch.testing.assert_close(got, F.fft_plain(x, inverse=not fwd),
+                                       rtol=rtol, atol=atol)
+            for br in (32, 128):
+                assert torch.equal(fft_ops.fft(x, fwd, block_rows=br), got)
+        assert torch.equal(x, before)
+
+
+@pytest.mark.parametrize("offset,n", [(1, 2048), (3, 512), (5, 64),
+                                      (7, 8192)])
+def test_fft_kernel_rows_at_odd_offset(cuda, offset, n):
+    """Two rows of a view at an odd element (8 bytes past a 16-byte
+    boundary): within tolerance of the plain version, bit-equal to the
+    same rows at an aligned address, the base left unwritten."""
+    gen = torch.Generator(device=cuda).manual_seed(offset)
+    base = torch.randn(offset + 2 * n + 1, dtype=torch.complex64,
+                       device=cuda, generator=gen)
+    before = base.clone()
+    view = base[offset:offset + 2 * n].view(2, n)
+    rtol, atol = fft_tol(n)
+    for fwd in (True, False):
+        got = fft_ops.fft(view, fwd)
+        torch.testing.assert_close(got, F.fft_plain(view, inverse=not fwd),
+                                   rtol=rtol, atol=atol)
+        assert torch.equal(got, fft_ops.fft(view.clone(), fwd))
+    assert torch.equal(base, before)
+
+
+@pytest.mark.parametrize("oa,ob,n", [(1, 0, 512), (0, 1, 511), (1, 1, 1001),
+                                     (3, 6, 1), (0, 1, 2), (5, 2, 131072)])
+def test_zip_kernel_views_at_any_phase(cuda, oa, ob, n):
+    """a and b at different 16-byte phases and odd offsets, odd lengths:
+    within 1e-5 of the plain version, bit-equal to aligned copies,
+    block_rows 256/1024/4096 bit-identical, the inputs unwritten."""
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    A, B = (torch.randn(n + 8, dtype=torch.complex64, device=cuda,
+                        generator=gen) for _ in range(2))
+    keep = (A.clone(), B.clone())
+    a, b = A[oa:oa + n], B[ob:ob + n]
+    before = Z.launches
+    got = zip_ops.zip_mul(a, b)
+    torch.testing.assert_close(got, Z.zip_plain(a, b), rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, zip_ops.zip_mul(a.clone(), b.clone()))
+    for br in (1024, 4096):
+        assert torch.equal(got, zip_ops.zip_mul(a, b, block_rows=br))
+    assert Z.launches == before + 4
+    assert torch.equal(A, keep[0]) and torch.equal(B, keep[1])
+
+
 def test_main_path_runs_on_kernels(cuda):
     """2FZF on one GPU PE under RIMMS: 2 copies in, every op a kernel
     launch, the output right against numpy."""
