@@ -13,9 +13,12 @@ Phases, each of which raises (exit code 1) on a failed check:
    too, and ZIP operands at different 16-byte phases), inputs unwritten
    and ``block_rows`` bit-identical; flash attention, RG-LRU
    and mLSTM at the reference's test shapes and tolerances
-   (``tests/test_kernels.py``) and at the widths of the repo's model
-   configs (llama3-8b, recurrentgemma-2b, xlstm-350m), with ``block_q``
-   and ``block_lanes`` bit-identical;
+   (``tests/test_kernels.py``), at the widths of the repo's model
+   configs (llama3-8b, recurrentgemma-2b, xlstm-350m) and at the
+   autotuning ladder's top rung, with ``block_q`` and ``block_lanes``
+   bit-identical, the RG-LRU bit-equal to its plain chunked scan, the
+   mLSTM's chunk candidates 32/64/128 within 2e-3 of plain at both
+   widths, inputs unwritten, and plain TF32's error per mLSTM product;
 4. timing — each kernel, its plain version and the one-call PyTorch
    equivalent where there is one (CUDA events, device time from
    ``torch.profiler``), beside the least time the card could take
@@ -23,7 +26,11 @@ Phases, each of which raises (exit code 1) on a failed check:
    at the radar path's one-row sizes (and FFT at 8192 and 1024 rows of
    1024) with, for the kernel and the library call alike, the latency
    of one call and a synchronise (what a runtime task pays), the host's
-   enqueue time and the device time;
+   enqueue time and the device time; the mLSTM and RG-LRU at the model
+   width and the ladder's top rung, device time summed over every
+   kernel of a call, beside the bound (the mLSTM's for split TF32, with
+   the FP32 and plain TF32 bounds) and the autotuning path's launches
+   at that shape (phase 7);
 5. main path — the paper's radar evaluation (2FFT, 2FZF, 3ZIP, RC, PD,
    SAR, and a streaming Session) under the ``reference`` and ``rimms``
    memory policies on ``cuda:0``, checked against numpy's FFT chain and
@@ -95,6 +102,10 @@ PEAK_TF32_PER_S = 495e12
 FLASH_MODEL = dict(B=1, S=4096, Hq=32, Hkv=8, d=128)
 RG_LRU_MODEL = dict(B=1, S=4096, D=2560)
 MLSTM_MODEL = dict(B=1, S=4096, H=4, m=512, chunk=64)
+# timed shapes: the model width, then the autotuning ladder's largest
+# rung (8 MiB: src/repro/core/autotune.py _mlstm_inputs, _rg_lru_inputs)
+RG_LRU_TIMED = ((1, 4096, 2560), (1, 2048, 512))
+MLSTM_TIMED = ((1, 4096, 4, 512, 64), (1, 5376, 2, 64, 64))
 
 # llama3-8b decode: 8 sequences of 4096 tokens in 16-token pages
 PAGED_MODEL = dict(B=8, Hq=32, Hkv=8, d=128, page=16, n_pages=256)
@@ -523,19 +534,22 @@ def phase_tuned_kernels(dev):
         log(f"[kernels] {what}: max|err| vs plain {e:.3e} (tol {tol}); "
             f"block_q 128/256/512 bit-identical")
 
-    m = RG_LRU_MODEL
     for (B, S, D), (lo, hi) in ([(c, (0.3, 0.999)) for c in RG_LRU_SWEEP]
                                 + [((1, 16, 128), (0.5, 0.9)),
-                                   ((m["B"], m["S"], m["D"]), (0.3, 0.999))]):
+                                   ((2, 200, 384), (0.3, 0.999))]
+                                + [(c, (0.3, 0.999)) for c in RG_LRU_TIMED]):
         a, b, h0 = inp.rg_lru(B, S, D, lo, hi)
+        kept = [x.clone() for x in (a, b, h0)]
         hs, hn = rg_ops.rg_lru_scan(a, b, h0)
         torch.cuda.synchronize()
         ws, wn = RL.rg_lru_plain(a, b, h0)
         what = f"rg_lru B{B} S{S} D{D}"
+        if not all(torch.equal(x, y) for x, y in zip((a, b, h0), kept)):
+            raise AssertionError(f"{what}: the kernel wrote its inputs")
         e = max(close(hs, ws, 1e-4, 1e-4, what + " h_seq vs plain"),
                 close(hn, wn, 1e-4, 1e-4, what + " h_final vs plain"))
         if not (torch.equal(hs, ws) and torch.equal(hn, wn)):
-            raise AssertionError(f"{what}: not bit-equal to the plain loop")
+            raise AssertionError(f"{what}: not bit-equal to the plain scan")
         for bl in (256, 512):
             got = rg_ops.rg_lru_scan(a, b, h0, block_lanes=bl)
             if not (torch.equal(got[0], hs) and torch.equal(got[1], hn)):
@@ -543,31 +557,99 @@ def phase_tuned_kernels(dev):
                                      f"bit-identical")
         errs["rg_lru"] = max(errs["rg_lru"], e)
         log(f"[kernels] {what}: max|err| vs plain {e:.3e} (tol 1e-4), "
-            f"bit-equal; block_lanes 128/256/512 bit-identical")
+            f"bit-equal; block_lanes 128/256/512 bit-identical; inputs "
+            f"unwritten")
 
-    m = MLSTM_MODEL
-    for B, S, H, hw, c in MLSTM_SWEEP + ((m["B"], m["S"], m["H"], m["m"],
-                                          m["chunk"]),):
+    for B, S, H, hw, c in MLSTM_SWEEP + MLSTM_TIMED:
         ins = inp.mlstm(B, S, H, hw)
+        kept = [x.clone() for x in ins]
         got = mlstm_ops.mlstm_chunkwise(*ins, chunk=c)
         torch.cuda.synchronize()
         what = f"mlstm B{B} S{S} H{H} m{hw} chunk{c}"
         e = close(got, ML.mlstm_plain(*ins, chunk=c), 2e-3, 2e-3,
                   what + " vs plain")
+        if not all(torch.equal(x, y) for x, y in zip(ins, kept)):
+            raise AssertionError(f"{what}: the kernel wrote its inputs")
         errs["mlstm"] = max(errs["mlstm"], e)
-        log(f"[kernels] {what}: max|err| vs plain {e:.3e} (tol 2e-3)")
-    # the autotuner's chunk candidates: they agree, but not bit for bit
-    ins = inp.mlstm(1, 512, 2, 64)
-    base = mlstm_ops.mlstm_chunkwise(*ins, chunk=64)
-    for c in (32, 128):
-        got = mlstm_ops.mlstm_chunkwise(*ins, chunk=c)
-        e = close(got, ML.mlstm_plain(*ins, chunk=c), 2e-3, 2e-3,
-                  f"mlstm chunk{c} vs plain")
-        d = close(got, base, 2e-3, 2e-3, f"mlstm chunk{c} vs chunk64")
-        log(f"[kernels] mlstm chunk{c}: max|err| vs plain {e:.3e}, "
-            f"vs chunk64 {d:.3e} (bit-identical: {torch.equal(got, base)})")
+        log(f"[kernels] {what}: max|err| vs plain {e:.3e} (tol 2e-3); "
+            f"inputs unwritten")
+    # the autotuner's chunk candidates, also at the model width and the
+    # ladder's top rung: each within 2e-3 of plain and of chunk 64, but
+    # not bit for bit
+    for B, S, H, hw in [(1, 512, 2, 64)] + [t[:4] for t in MLSTM_TIMED]:
+        ins = inp.mlstm(B, S, H, hw)
+        base = mlstm_ops.mlstm_chunkwise(*ins, chunk=64)
+        for c in (32, 64, 128):
+            got = mlstm_ops.mlstm_chunkwise(*ins, chunk=c)
+            what = f"mlstm B{B} S{S} H{H} m{hw} chunk{c}"
+            e = close(got, ML.mlstm_plain(*ins, chunk=c), 2e-3, 2e-3,
+                      what + " vs plain")
+            d = close(got, base, 2e-3, 2e-3, what + " vs chunk64")
+            errs["mlstm"] = max(errs["mlstm"], e)
+            log(f"[kernels] {what}: max|err| vs plain {e:.3e}, vs chunk64 "
+                f"{d:.3e} (bit-identical: {torch.equal(got, base)})")
+    m = MLSTM_MODEL
+    ins = inp.mlstm(m["B"], m["S"], m["H"], m["m"])
+    log("[kernels] mlstm plain TF32 error at the model width, one product "
+        "at a time in TF32 (max|h - h_fp32|; the kernel runs every product "
+        "in split TF32): " + json.dumps(mlstm_tf32_errors(ins, m["chunk"])))
     torch.cuda.synchronize()
     return errs
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 as cvt.rna.tf32.f32 rounds it (10-bit mantissa,
+    nearest, ties away from zero)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def mlstm_tf32_errors(ins, chunk):
+    """The chunkwise recurrence (as ``mlstm_plain`` computes it) with one
+    matrix product at a time on TF32-rounded operands (products exact,
+    sums in float32, as the tensor cores take TF32): the largest
+    deviation of h from the float32 result, by product."""
+    q, k, v, ig, lf = ins
+    batch, s, h, m = q.shape
+    bh = batch * h
+
+    def heads(x):
+        return x.transpose(1, 2).reshape(bh, s, -1)
+
+    qh, kh, vh = heads(q / math.sqrt(m)), heads(k), heads(v)
+    ih, fh = heads(ig[..., None])[..., 0], heads(lf[..., None])[..., 0]
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=q.device))
+
+    def run(tf32_of):
+        def mm(name, a, b):
+            return _tf32(a) @ _tf32(b) if name == tf32_of else a @ b
+
+        c_state = torch.zeros((bh, m, m), device=q.device)
+        n_state = torch.zeros((bh, m, 1), device=q.device)
+        outs = []
+        for t0 in range(0, s, chunk):
+            sl = slice(t0, t0 + chunk)
+            qc, kc, vc, ic = qh[:, sl], kh[:, sl], vh[:, sl], ih[:, sl]
+            cum = torch.cumsum(fh[:, sl], dim=-1)
+            scores = mm("scores", qc, kc.transpose(-1, -2))
+            dlt = cum[:, :, None] - cum[:, None, :]
+            a = torch.where(mask, scores * torch.exp(dlt) * ic[:, None, :],
+                            torch.zeros((), device=q.device))
+            ecum = torch.exp(cum)[..., None]
+            num = mm("av", a, vc) + ecum * mm("qc", qc, c_state)
+            den = a.sum(dim=-1, keepdim=True) + ecum * (qc @ n_state)
+            outs.append(num / den.abs().clamp_min(1.0))
+            kw = kc * (torch.exp(cum[:, -1:] - cum) * ic)[..., None]
+            decay = torch.exp(cum[:, -1])[:, None, None]
+            c_state = decay * c_state + mm("c_update", kw.transpose(-1, -2),
+                                           vc)
+            n_state = decay * n_state + kw.sum(dim=1)[..., None]
+        return torch.cat(outs, dim=1)
+
+    want = run(None)
+    return {name: max_err(run(name), want)
+            for name in ("scores", "av", "qc", "c_update")}
 
 
 # ---------------------------------------------- 4. timing: the tuned ones
@@ -576,10 +658,6 @@ def phase_tuned_timing(dev):
 
     from repro_torch.kernels.flash_attention import flash_attention as FA
     from repro_torch.kernels.flash_attention import ops as flash_ops
-    from repro_torch.kernels.mlstm import mlstm as ML
-    from repro_torch.kernels.mlstm import ops as mlstm_ops
-    from repro_torch.kernels.rg_lru import ops as rg_ops
-    from repro_torch.kernels.rg_lru import rg_lru as RL
 
     inp = Inputs(dev, 3)
     rows = []
@@ -618,49 +696,102 @@ def phase_tuned_timing(dev):
         log("[timing] " + json.dumps(rec))
         del q, k, v, qt, kt, vt
 
-    m = RG_LRU_MODEL
-    B, S, D = m["B"], m["S"], m["D"]
-    a, b, h0 = inp.rg_lru(B, S, D)
-    bound_ms, bound_by = _bound(4.0 * (3 * B * S * D + 2 * B * D),
-                                2.0 * B * S * D, PEAK_TF32_PER_S)
-    rec = {
-        "kernel": "rg_lru", "dtype": "float32", "shape": f"B{B} S{S} D{D}",
-        "kernel_ms": _time_ms(lambda: rg_ops.rg_lru_scan(a, b, h0), 50),
-        "kernel_device_ms": _device_ms(lambda: rg_ops.rg_lru_scan(a, b, h0),
-                                       "rg_lru_kernel", iters=20),
-        "plain_ms": _time_ms(lambda: RL.rg_lru_plain(a, b, h0), 2,
-                             warmup=1),
-        "library_ms": None,
-        "bound_ms": bound_ms, "bound_by": bound_by,
-    }
-    rows.append(rec)
-    log("[timing] " + json.dumps(rec))
-
-    m = MLSTM_MODEL
-    B, S, H, hw, c = m["B"], m["S"], m["H"], m["m"], m["chunk"]
-    ins = inp.mlstm(B, S, H, hw)
-    # per chunk and head: the masked c x c scores and A @ v, q @ C,
-    # q . n, the C update and the n update
-    tri = c * (c + 1) / 2
-    per_chunk = 2 * tri * hw * 2 + 2 * c * hw * hw * 2 + 4 * c * hw
-    flops = per_chunk * (S // c) * B * H
-    nbytes = 4.0 * (4 * B * S * H * hw + 2 * B * S * H)
-    bound_ms, bound_by = _bound(nbytes, flops, PEAK_TF32_PER_S)
-    rec = {
-        "kernel": "mlstm", "dtype": "float32",
-        "shape": f"B{B} S{S} H{H} m{hw} chunk{c}",
-        "kernel_ms": _time_ms(lambda: mlstm_ops.mlstm_chunkwise(*ins), 10,
-                              warmup=2),
-        "kernel_device_ms": _device_ms(
-            lambda: mlstm_ops.mlstm_chunkwise(*ins), "mlstm_kernel",
-            iters=5),
-        "plain_ms": _time_ms(lambda: ML.mlstm_plain(*ins), 5, warmup=1),
-        "library_ms": None,
-        "bound_ms": bound_ms, "bound_by": bound_by,
-    }
-    rows.append(rec)
-    log("[timing] " + json.dumps(rec))
+    for B, S, D in RG_LRU_TIMED:
+        rec = _rg_lru_record(inp, B, S, D)
+        rows.append(rec)
+        log("[timing] " + json.dumps(rec))
+    for B, S, H, hw, c in MLSTM_TIMED:
+        rec = _mlstm_record(inp, B, S, H, hw, c)
+        rows.append(rec)
+        log("[timing] " + json.dumps(rec))
     return rows
+
+
+def _device_ms_by_kernel(fn, iters: int = 10):
+    """Device ms a call of ``fn`` spends in each kernel, by name (the
+    profiler's sums over ``iters`` calls); {} when it records none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+    except Exception as e:  # a measurement, not a check: report absent
+        log(f"[timing] profiler unavailable ({type(e).__name__}: {e})")
+        return {}
+    out = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", 0.0)
+        if t and "kernel" in ev.key:
+            name = ev.key.split("::")[-1].split("(")[0].split("<")[0]
+            out[name] = out.get(name, 0.0) + t / iters / 1e3
+    return out
+
+
+def _recurrent_times(kernel_fn, plain_fn, plain_iters):
+    """A recurrent kernel's pipelined call time (CUDA events), its device
+    time summed over every kernel a call launches (profiler) with the
+    number of those kernels and each one's share, and the plain
+    version's pipelined time."""
+    device_ms, per_call = _device_ms_all(kernel_fn, iters=10)
+    return {"kernel_ms": _time_ms(kernel_fn, 20, warmup=3),
+            "kernel_device_ms": device_ms,
+            "device_kernels_per_call": per_call,
+            "device_ms_by_kernel": _device_ms_by_kernel(kernel_fn),
+            "plain_ms": _time_ms(plain_fn, plain_iters, warmup=1)}
+
+
+def _rg_lru_record(inp, B, S, D):
+    from repro_torch.kernels.rg_lru import ops as rg_ops
+    from repro_torch.kernels.rg_lru import rg_lru as RL
+
+    a, b, h0 = inp.rg_lru(B, S, D)
+    # a and b read once, h_seq written once, h0 read and h_final written
+    # once; a multiply and an add an element on the CUDA cores
+    bound_ms, bound_by = _bound(4.0 * (3 * B * S * D + 2 * B * D),
+                                2.0 * B * S * D)
+    return {"kernel": "rg_lru", "dtype": "float32",
+            "shape": f"B{B} S{S} D{D}", "dims": [B, S, D],
+            **_recurrent_times(lambda: rg_ops.rg_lru_scan(a, b, h0),
+                               lambda: RL.rg_lru_plain(a, b, h0), 2),
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def mlstm_work(B, S, H, m, c):
+    """(bytes, product flops, other flops) of one mLSTM call: q, k, v
+    and the gates read once, h written once; per chunk and head the
+    masked c x c scores and A @ v, q @ C and the C update as matrix
+    products, q . n, the n update and the decays beside them."""
+    tri = c * (c + 1) / 2
+    chunks = (S // c) * B * H
+    products = (2 * tri * m * 2 + 2 * c * m * m * 2) * chunks
+    other = 4.0 * c * m * chunks
+    nbytes = 4.0 * (4 * B * S * H * m + 2 * B * S * H)
+    return nbytes, products, other
+
+
+def _mlstm_record(inp, B, S, H, hw, c):
+    from repro_torch.kernels.mlstm import mlstm as ML
+    from repro_torch.kernels.mlstm import ops as mlstm_ops
+
+    ins = inp.mlstm(B, S, H, hw)
+    nbytes, products, other = mlstm_work(B, S, H, hw, c)
+    # the kernel's arithmetic: every product as split TF32 (three TF32
+    # products each on the tensor cores); beside it the same work on the
+    # FP32 units and as plain TF32
+    bound_ms, bound_by = _bound(nbytes, 3 * products, PEAK_TF32_PER_S)
+    return {"kernel": "mlstm", "dtype": "float32",
+            "shape": f"B{B} S{S} H{H} m{hw} chunk{c}", "dims": [B, S, H, hw],
+            **_recurrent_times(
+                lambda: mlstm_ops.mlstm_chunkwise(*ins, chunk=c),
+                lambda: ML.mlstm_plain(*ins, chunk=c), 3),
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_fp32_ms": _bound(nbytes, products + other)[0],
+            "bound_tf32_ms": _bound(nbytes, products, PEAK_TF32_PER_S)[0]}
 
 
 # ---------------------------------- 3./4. the paged-attention kernel
@@ -1118,6 +1249,38 @@ def _tuned_plain(op, ts):
     return mods["rg_lru"].rg_lru_plain(*ts)
 
 
+class _LaunchShapes:
+    """Counts the mLSTM and RG-LRU kernel wrappers' calls by input shape
+    between :meth:`install` and :meth:`restore` (the launch counters stay
+    as they are): which rung of the ladder the path's launches ran at."""
+
+    def __init__(self):
+        self.counts = collections.Counter()
+
+    def install(self):
+        from repro_torch.kernels.mlstm import ops as mlstm_ops
+        from repro_torch.kernels.rg_lru import ops as rg_ops
+
+        self._saved = []
+        for mod, name, key in ((mlstm_ops, "mlstm_kernel", "mlstm"),
+                               (rg_ops, "rg_lru_kernel", "rg_lru")):
+            orig = getattr(mod, name)
+
+            def rec(*args, _orig=orig, _key=key, **kw):
+                self.counts[(_key, tuple(args[0].shape))] += 1
+                return _orig(*args, **kw)
+
+            self._saved.append((mod, name, orig))
+            setattr(mod, name, rec)
+
+    def restore(self):
+        for mod, name, orig in self._saved:
+            setattr(mod, name, orig)
+
+    def snapshot(self):
+        return collections.Counter(self.counts)
+
+
 def phase_autotune(dev, ladder=None):
     """The autotuning path as a user drives it: ``rimms.autotune`` on a
     session with a ``gpu0`` PE, then every tuned op at every rung
@@ -1130,12 +1293,15 @@ def phase_autotune(dev, ladder=None):
     ladder = tuple(ladder or DEFAULT_LADDER)
     session = rimms.Session.emulated(n_cpu=1, accelerators=("gpu0",),
                                      device=dev)
+    shapes = _LaunchShapes()
     try:
+        shapes.install()
         reset_counts()
         t0 = time.perf_counter()
         table = rimms.autotune(session, nbytes=ladder)
         torch.cuda.synchronize()
         calib = read_counts()
+        path_shapes = shapes.snapshot()
         log(f"[autotune] {len(table)} cells over ladder {list(ladder)} in "
             f"{time.perf_counter() - t0:.1f}s; kernel launches while "
             f"calibrating {calib}")
@@ -1161,6 +1327,7 @@ def phase_autotune(dev, ladder=None):
         # the counted dispatch: every (op, rung) pinned to gpu0
         session.runtime.reset_stats()
         before = read_counts()
+        shapes_before = shapes.snapshot()
         futs = []
         for tun, nb, ins, *_ in cases:
             name = f"{tun.op}@{nb}"
@@ -1176,6 +1343,7 @@ def phase_autotune(dev, ladder=None):
         session.barrier()
         after = read_counts()
         dispatch = {k: after[k] - before[k] for k in after}
+        path_shapes.update(shapes.snapshot() - shapes_before)
         tasks = collections.Counter(
             name.split("@")[0] for name, pe in session.runtime.task_log
             if pe == "gpu0")
@@ -1209,9 +1377,13 @@ def phase_autotune(dev, ladder=None):
         log(f"[autotune] {len(cases)} gpu0 tasks; the runtime ran each "
             f"table winner ({len(want_log)} non-default); kernel launches "
             f"{dispatch} equal the gpu tasks {dict(tasks)}")
+        log("[autotune] mlstm/rg_lru launches by input shape " + json.dumps(
+            {f"{k} {list(shape)}": n for (k, shape), n in
+             sorted(path_shapes.items())}))
     finally:
+        shapes.restore()
         session.close()
-    return calib, dispatch, winners
+    return calib, dispatch, winners, path_shapes
 
 
 def phase_cli():
@@ -1533,10 +1705,25 @@ def main() -> int:
             f"fft {counter.fft}, zip {counter.zip}")
 
     t0 = time.perf_counter()
-    calib, dispatch, _ = phase_autotune(dev)
+    calib, dispatch, _, path_shapes = phase_autotune(dev)
     tuned = {k: calib[k] + dispatch[k] for k in calib}
     log(f"[autotune] path in {time.perf_counter() - t0:.1f}s; kernel "
         f"launches over the path {tuned}")
+    # launches x (device - bound) at each timed shape of the recurrent
+    # kernels: the path's launches at that input shape
+    for r in timing:
+        if r["kernel"] in ("mlstm", "rg_lru"):
+            r["autotune_launches"] = path_shapes[(r["kernel"],
+                                                  tuple(r["dims"]))]
+            dev_ms = r["kernel_device_ms"]
+            r["launches_x_excess_ms"] = (
+                None if dev_ms is None else
+                r["autotune_launches"] * (dev_ms - r["bound_ms"]))
+            log("[timing] at shape " + json.dumps(
+                {k: r[k] for k in ("kernel", "shape", "kernel_ms",
+                                   "kernel_device_ms", "bound_ms",
+                                   "autotune_launches",
+                                   "launches_x_excess_ms")}))
     phase_cli()
 
     # the serving path: warmed outside the counted run
@@ -1593,6 +1780,17 @@ def main() -> int:
             "timed_shape": shape or f"{t['shape']} {t['dtype']}",
             **({"library_call": t["library_call"]}
                if "library_call" in t else {}),
+            # mLSTM and RG-LRU: every timed shape (the model width and the
+            # ladder's largest rung) with the path's launches there
+            **({"timed_shapes": [
+                {k: r.get(k) for k in (
+                    "shape", "kernel_ms", "kernel_device_ms",
+                    "device_kernels_per_call", "device_ms_by_kernel",
+                    "bound_ms", "bound_by",
+                    "bound_fp32_ms", "bound_tf32_ms", "plain_ms",
+                    "autotune_launches", "launches_x_excess_ms")}
+                for r in timing if r["kernel"] == kname]}
+               if kname in ("mlstm", "rg_lru") else {}),
             # FFT and ZIP: what a runtime task pays (one call then a
             # synchronise), the host's share, the library's device time
             **{k: t[k] for k in ("kernel_sync_ms", "kernel_enqueue_ms",

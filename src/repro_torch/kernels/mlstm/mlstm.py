@@ -5,9 +5,11 @@ i_gate, log_f (B, S, H), all float32, q unscaled (both divide it by
 √m):
 
 * :func:`mlstm_kernel` launches the hand-written CUDA kernel
-  (``csrc/mlstm.cu``): per head, blocks own 16 columns of the m × m
-  state C each and carry them, chunk by chunk in order, in shared
-  memory within one launch;
+  (``csrc/mlstm.cu``) in two passes: one block per (head, chunk)
+  computes the chunk's masked, decayed scores A once and A V on the
+  tensor cores, then one block per (16 columns of the m × m state C,
+  head) walks the chunks in order with its columns of C in shared
+  memory (:func:`launch_plan` is its geometry);
 * :func:`mlstm_plain` is the same chunkwise algorithm in torch ops, one
   chunk at a time over every head — what a CPU tensor runs, and what the
   kernel is held against on the card.
@@ -26,19 +28,46 @@ import torch
 
 from .._build import check, launch, library
 
-__all__ = ["CHUNK", "MAX_CHUNK", "MAX_M", "mlstm_kernel", "mlstm_plain",
-           "launches"]
+__all__ = ["CHUNK", "MAX_CHUNK", "MAX_M", "launch_plan", "mlstm_kernel",
+           "mlstm_plain", "launches"]
 
 CHUNK = 64
-#: largest chunk the kernel takes (its c × c scores sit in shared memory)
+#: largest chunk the kernel takes (its c × c scores sit in eight warps'
+#: registers, 16 rows a warp)
 MAX_CHUNK = 128
-#: largest head width the kernel takes (16 columns of C, the normalizer
-#: and a chunk's buffers fill the 227 KB of shared memory at 1024)
+#: largest head width the kernel takes (the second pass keeps m × 16 of
+#: C in shared memory beside a step's slices: 192 KB of the 227 KB at
+#: 1024 with chunk 128)
 MAX_M = 1024
+#: the kernel's tiles (``csrc/mlstm.cu``): threads a block, depth slice,
+#: columns of C a block of the second pass, shared-memory row strides
+THREADS, SLICE, COLS = 256, 32, 16
+QS, KS, VS = SLICE + 8, SLICE + 4, COLS + 4
 
 #: kernel launches since the count was last set to 0
 launches = 0
 _count_lock = threading.Lock()
+
+
+def launch_plan(batch: int, s: int, h: int, m: int, chunk: int) -> dict:
+    """The kernel's geometry for one call: the chunk padded to a
+    multiple of 16 (``cp``), each pass's grid and shared memory, the
+    second pass's steps a chunk (slices of m, at least two) and the
+    workspace's float32 elements (A V in q's layout, then exp(cum), w,
+    den and decay per head and chunk)."""
+    cp = -(-chunk // 16) * 16
+    nc = s // chunk
+    nm = -(-m // SLICE)
+    mp = nm * SLICE
+    return {
+        "cp": cp, "chunks": nc, "m_slices": nm, "steps": max(nm, 2),
+        "intra_grid": (nc, batch * h),
+        "intra_smem": 4 * (4 * cp * QS + cp * (cp + 8) + 2 * MAX_CHUNK),
+        "inter_grid": (-(-m // COLS), batch * h),
+        "inter_smem": 4 * (COLS * (mp + 8) + mp + 2 * cp * QS + 3 * cp * KS
+                           + 2 * cp * VS + 2 * 4 * MAX_CHUNK + 2 * MAX_CHUNK),
+        "work": batch * s * h * m + batch * h * nc * (3 * chunk + 1),
+    }
 
 
 def mlstm_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -46,16 +75,19 @@ def mlstm_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  chunk: int = CHUNK) -> torch.Tensor:
     """Contiguous float32 tensors on one CUDA device, ``chunk`` dividing
     S → h (B, S, H, m) in a fresh tensor.  The caller has validated
-    them; this launches on the current stream and does not wait."""
+    them; this launches both passes on the current stream (one call, one
+    count) and does not wait."""
     global launches
     batch, s, h, m = q.shape
     out = torch.empty_like(q)
     if batch == 0 or s == 0:
         return out
+    work = torch.empty(launch_plan(batch, s, h, m, chunk)["work"],
+                       dtype=torch.float32, device=q.device)
     check(launch(library().rimms_mlstm_f32, q, q.data_ptr(), k.data_ptr(),
                  v.data_ptr(), i_gate.data_ptr(), log_f.data_ptr(),
-                 out.data_ptr(), batch, s, h, m, int(chunk),
-                 ctypes.c_float(math.sqrt(m))), "mlstm")
+                 out.data_ptr(), work.data_ptr(), batch, s, h, m,
+                 int(chunk), ctypes.c_float(1.0 / math.sqrt(m))), "mlstm")
     with _count_lock:
         launches += 1
     return out

@@ -27,7 +27,7 @@ def rg_lru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor, *,
     all float32.  Returns (h_seq (B, S, D), h_final (B, D)).
 
     CUDA tensors go to the hand-written kernel; CPU tensors to the plain
-    torch loop; anything else raises.  ``block_lanes`` tunes lanes per
+    chunked scan (the kernel's arithmetic); anything else raises.  ``block_lanes`` tunes lanes per
     thread block (bit-identical across values); it is clamped down to
     the largest multiple of 128 dividing D padded to 128, as the
     reference clamps it, and D itself is never padded."""

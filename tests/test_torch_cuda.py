@@ -188,7 +188,8 @@ def test_flash_attention_kernel_matches_plain(cuda, B, S, Hq, Hkv, d, bk,
     assert FA.launches == before + 3
 
 
-@pytest.mark.parametrize("B,S,D", [(2, 32, 128), (3, 64, 200), (1, 256, 2560)])
+@pytest.mark.parametrize("B,S,D", [(2, 32, 128), (3, 64, 200), (1, 256, 2560),
+                                   (2, 200, 384), (1, 2048, 512)])
 def test_rg_lru_kernel_bit_equal_to_plain(cuda, B, S, D):
     gen = torch.Generator(device=cuda).manual_seed(D)
     a = torch.rand(B, S, D, device=cuda, generator=gen) * 0.7 + 0.3
@@ -220,6 +221,23 @@ def test_mlstm_kernel_matches_plain(cuda, B, S, H, m, chunk):
         got, ML.mlstm_plain(q, k, v, ig, lf, chunk=chunk),
         rtol=2e-3, atol=2e-3)
     assert ML.launches == before + 1
+
+
+@pytest.mark.parametrize("chunk", [32, 64, 128])
+def test_mlstm_kernel_at_the_ladders_top_rung(cuda, chunk):
+    """The autotuner's 8 MiB rung, (1, 5376, 2, 64), at each chunk
+    candidate: within 2e-3 of plain, and the inputs unwritten."""
+    gen = torch.Generator(device=cuda).manual_seed(chunk)
+    q, k, v = (torch.randn(1, 5376, 2, 64, device=cuda, generator=gen) * sc
+               for sc in (1.0, 0.3, 1.0))
+    ig = torch.randn(1, 5376, 2, device=cuda, generator=gen)
+    lf = -torch.randn(1, 5376, 2, device=cuda, generator=gen).abs()
+    ins = (q, k, v, ig, lf)
+    kept = [x.clone() for x in ins]
+    got = mlstm_ops.mlstm_chunkwise(*ins, chunk=chunk)
+    torch.testing.assert_close(got, ML.mlstm_plain(*ins, chunk=chunk),
+                               rtol=2e-3, atol=2e-3)
+    assert all(torch.equal(x, y) for x, y in zip(ins, kept))
 
 
 def test_autotune_dispatches_kernels_on_gpu(cuda):
