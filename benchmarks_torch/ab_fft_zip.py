@@ -8,7 +8,11 @@ lists).  Four processes run one after another -- base, this tree, this
 tree, base -- and each builds its own tree's kernels and runs this
 tree's ``chip_smoke.phase_timing`` over them: the same measurements
 (call, one call + synchronise, enqueue, device time, and the library
-call's) at the same shapes, on the same card, within one call.  With
+call's) at the same shapes, on the same card, within one call (FFT
+shapes past a tree's largest N are left out on its side).  Each process
+also hashes its FFT kernel's output for seeded inputs at every power of
+two up to 8192 (1, 3 and 128 rows, forward and inverse); the script
+fails unless the four runs give the same bits.  With
 ``--main`` each process then also drives the radar path
 (``chip_smoke.phase_main``, after one small warm-up run) and reports each
 app's wall seconds per policy and the runtime's measured compute seconds
@@ -28,14 +32,29 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 _CHILD = r"""
-import json, sys
+import hashlib, json, sys
 sys.path.insert(0, sys.argv[1] + "/src")
 sys.path.insert(1, sys.argv[2])
 import torch
 import chip_smoke
 from repro_torch.kernels import _build
+from repro_torch.kernels.fft import fft as F
+from repro_torch.kernels.fft import ops as fft_ops
 _build.library()
-out = {"timing": chip_smoke.phase_timing(torch.device("cuda", 0))}
+chip_smoke.FFT_TIMED = tuple(s for s in chip_smoke.FFT_TIMED
+                             if s[1] <= F.MAX_N)
+gen = torch.Generator(device="cuda").manual_seed(0)
+digests = {}
+for p in range(1, 14):
+    for rows in (1, 3, 128):
+        x = torch.randn(rows, 1 << p, dtype=torch.complex64, device="cuda",
+                        generator=gen)
+        for fwd in (True, False):
+            y = fft_ops.fft(x, fwd).cpu().numpy()
+            digests[f"{1 << p}/{rows}/{int(fwd)}"] = hashlib.sha256(
+                y.tobytes()).hexdigest()
+out = {"timing": chip_smoke.phase_timing(torch.device("cuda", 0)),
+       "fft_digests": digests}
 if sys.argv[3] == "main":
     chip_smoke.phase_main(None, fft_sizes=(64,), fzf_sizes=(64,),
                           zip_sizes=(128,), pd=(4, 128), sar_scale=64,
@@ -89,12 +108,20 @@ def main(argv=None) -> int:
                                     "runs": [r for _, r in runs]}, indent=1))
     print(f"card: {smi}; order: base, change, change, base; each cell the "
           f"mean of a side's two runs, ms")
-    timing = [(side, r["timing"]) for side, r in runs]
-    for i, rec0 in enumerate(timing[0][1]):
-        cells = {side: {k: mean([r[i].get(k) for s, r in timing if s == side])
+    digests = [r["fft_digests"] for _, r in runs]
+    differ = sorted(k for k in digests[0]
+                    if len({d.get(k) for d in digests}) != 1)
+    print(f"fft bits: {len(digests[0]) - len(differ)} of {len(digests[0])} "
+          f"cases (N 2..8192) identical across the four runs")
+    timing = [(side, {(r["kernel"], r["rows"], r["n"]): r
+                      for r in rec["timing"]}) for side, rec in runs]
+    shapes = list(dict.fromkeys(key for _, recs in timing for key in recs))
+    for key in shapes:
+        cells = {side: {k: mean([recs[key].get(k) for s, recs in timing
+                                 if s == side and key in recs])
                         for k in KEYS} for side in ("base", "change")}
-        print(json.dumps({"kernel": rec0["kernel"], "rows": rec0["rows"],
-                          "n": rec0["n"], **cells}))
+        print(json.dumps({"kernel": key[0], "rows": key[1], "n": key[2],
+                          **cells}))
     if args.main:
         mains = [(side, r["main"]) for side, r in runs]
         for i, app0 in enumerate(mains[0][1]):
@@ -111,6 +138,10 @@ def main(argv=None) -> int:
                             for op in ("fft", "ifft", "zip")}}
                     for policy in ("reference", "rimms")}
             print(json.dumps(line))
+    if differ:
+        print(f"fft output differs between the trees at {differ}",
+              file=sys.stderr)
+        return 1
     return 0
 
 

@@ -1,12 +1,13 @@
-"""Shared benchmark helpers of the port (the parts of
-``benchmarks/common.py`` that its benchmarks use)."""
+"""Shared benchmark helpers of the port (``benchmarks/common.py``'s):
+timing, CSV emit, app runners, tracing."""
 
 from __future__ import annotations
 
 import contextlib
 import json
+import time
 from pathlib import Path
-from typing import List
+from typing import Callable, Dict, List
 
 ROWS: List[str] = []
 
@@ -74,3 +75,54 @@ def emit(name: str, us_per_call: float, derived: str = "") -> None:
     row = f"{name},{us_per_call:.3f},{derived}"
     ROWS.append(row)
     print(row, flush=True)
+
+
+def time_it(fn: Callable, *, repeats: int = 5, warmup: int = 1) -> float:
+    """Median wall seconds of fn() over repeats."""
+    for _ in range(warmup):
+        fn()
+    ts = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        ts.append(time.perf_counter() - t0)
+    ts.sort()
+    return ts[len(ts) // 2]
+
+
+def run_app(builder, *, policy: str, accelerators=("gpu0",), n_cpu: int = 1,
+            scheduler: str = "round_robin", repeats: int = 5,
+            allocator: str = "nextfit", backend=None,
+            builder_kwargs=None, device=None) -> Dict:
+    """Build + run one radar app; returns measured/modeled time + ledger.
+    ``backend`` selects kernel execution (see
+    :func:`repro_torch.core.runtime.resolve_backend`); ``device`` is
+    where accelerator spaces live (``None``: CUDA, ``"cpu"``: CPU
+    tensors).  The first run is a warm-up (on the card it also builds
+    the kernels, and the runtime waits for every kernel it launches);
+    the serial dispatch goes through the private impl so the Runtime.run
+    deprecation warning stays pointed at user code."""
+    from repro_torch.apps.radar import make_runtime
+
+    rt, ctx = make_runtime(policy=policy, scheduler=scheduler, n_cpu=n_cpu,
+                           accelerators=accelerators, allocator=allocator,
+                           backend=backend, device=device)
+    bufs, tasks = builder(ctx, **(builder_kwargs or {}))
+    rt._run_impl(tasks)  # warmup
+    ctx.ledger.reset()
+    t0 = time.perf_counter()
+    for _ in range(repeats):
+        rt._run_impl(tasks)
+    wall = (time.perf_counter() - t0) / repeats
+    snap = ctx.ledger.snapshot()
+    rt.close()
+    return {
+        "wall_s": wall,
+        "copies": snap["total_copies"] / repeats,
+        "bytes": snap["total_bytes"] / repeats,
+        "modeled_s": snap["modeled_seconds"] / repeats,
+        # per-(src,dst) transfer matrix (per *link* under a topology):
+        # copies/bytes/modeled_s per directed pair
+        "per_link": snap["per_link"],
+        "ledger": snap,
+    }

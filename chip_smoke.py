@@ -7,8 +7,10 @@ Phases, each of which raises (exit code 1) on a failed check:
 1. card — the GPU's name and power limit (``nvidia-smi``);
 2. build — compiles ``src/repro_torch/csrc/*.cu`` with nvcc (sm_90a);
 3. kernels — every CUDA kernel against its plain torch version on the
-   card: FFT at every power of two from 2 to 8192 in 1, 3, 128 and 1024
-   rows, forward and inverse (and against ``torch.fft``), ZIP across the
+   card: FFT at every power of two from 2 to 2^20 (1, 3, 128 and 1024
+   rows up to 8192, one launch; 1, 3 and 128 up to 65536 and 1 and 3
+   above, the four-step passes), forward and inverse (and against
+   ``torch.fft``), ZIP across the
    radar path's shapes, both at fragments' storage offsets (odd ones
    too, and ZIP operands at different 16-byte phases), inputs unwritten
    and ``block_rows`` bit-identical; flash attention, RG-LRU
@@ -23,8 +25,9 @@ Phases, each of which raises (exit code 1) on a failed check:
    equivalent where there is one (CUDA events, device time from
    ``torch.profiler``), beside the least time the card could take
    (bytes, or operations at the peak for the input type); FFT and ZIP
-   at the radar path's one-row sizes (and FFT at 8192 and 1024 rows of
-   1024) with, for the kernel and the library call alike, the latency
+   at the radar path's one-row sizes (and FFT at 8192, 1024 rows of
+   1024, and one row of 16384, 32768 and 2^20, 128 rows of 16384 and 64
+   of 65536: the four-step's two launches) with, for the kernel and the library call alike, the latency
    of one call and a synchronise (what a runtime task pays), the host's
    enqueue time and the device time; the mLSTM and RG-LRU at the model
    width and the ladder's top rung, device time summed over every
@@ -56,7 +59,17 @@ Phases, each of which raises (exit code 1) on a failed check:
    teacher-forced prefill steps of the legacy engine;
 9. dense path — llama3-8b at full width, 2 layers, float32:
    ``ServeEngine`` (the paged kernel) gives the greedy tokens of
-   ``Model.prefill`` + ``decode_step`` (plain torch attention).
+   ``Model.prefill`` + ``decode_step`` (plain torch attention);
+10. paper suite — the port's benchmark suite on ``cuda:0``: the gated
+   benches' smokes (graph, pressure, stream, topology) and
+   ``benchmarks_torch.run --json-dir`` at full depth (graph's fork-joins
+   at n 32768, the rest at n 16384), their modeled gates equal to
+   ``benchmarks/baselines/`` and ``benchmarks/baselines/nightly/`` through
+   the port's ``check_regression`` (both sides logged); the paper-figure
+   benches (Figs 5-8 and 10, Tables 1-3) at their default sizes with no
+   MISMATCH row; both ``examples_torch`` scripts as subprocesses; every
+   FFT/ZIP task on a device PE launched its kernel, FFT rows past 8192
+   among them.  Records go to ``build/paper_suite/``.
 
 Phases 3 and 4 also hold the paged-attention kernel against its plain
 version (the reference's sweep, rows of length 0, repeated pages, and
@@ -80,6 +93,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -115,10 +129,21 @@ SERVE = dict(max_batch=4, page_size=16, num_pages=512, max_pages_per_seq=32,
              pages_per_group=8)
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 8, (32, 129), 32
 
-# (rows, N): the radar path's one-row FFTs, one row at the kernel's
-# largest N, and the autotuner's 8 MiB rung (1024 rows of 1024)
+# (rows, N): the radar path's one-row FFTs, one row at the largest N of one
+# launch, the autotuner's 8 MiB rung (1024 rows of 1024), and one row past
+# one launch (the four-step passes): the paper suite's 16384 and 32768,
+# the kernel's largest N, and many rows of 16384 and 65536
 FFT_TIMED = ((1, 128), (1, 256), (1, 512), (1, 2048), (1, 8192),
-             (1024, 1024))
+             (1024, 1024), (1, 16384), (1, 32768), (1, 1 << 20),
+             (128, 16384), (64, 65536))
+
+
+def fft_sweep_rows(n: int):
+    """Rows phase 3 holds the FFT kernel to at length ``n``: 1, 3, 128 and
+    1024 up to one launch's 8192, 1, 3 and 128 up to 65536, then 1 and 3
+    (up to 2^20)."""
+    return ((1, 3, 128, 1024) if n <= 8192 else (1, 3, 128) if n <= 65536
+            else (1, 3))
 ZIP_TIMED_N = (128, 256, 512, 131072)
 REPS = 5  # wall-time runs per main-path configuration and policy (median)
 POLICIES = ("reference", "rimms")
@@ -130,9 +155,17 @@ def log(*parts) -> None:
 
 def fft_tol(n: int):
     """rtol, atol of tests/test_kernels.py: f32 twiddles and a different
-    summation order."""
+    summation order.  They are sized for forward outputs (about sqrt(n) in
+    magnitude); an inverse is compared times n (:func:`fft_scale`)."""
     rtol = 3e-3 if n >= 2048 else 5e-4
     return rtol, rtol * math.sqrt(n)
+
+
+def fft_scale(n: int, forward: bool) -> int:
+    """What an FFT output is multiplied by before it is held to
+    :func:`fft_tol`: 1 forward, n inverse (an inverse is about 1/sqrt(n),
+    so n times it has the forward's size; a power of two scales exactly)."""
+    return 1 if forward else n
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -192,22 +225,24 @@ def phase_kernels(dev):
                            generator=gen)
 
     errs = {"fft": 0.0, "zip": 0.0}
-    for n in (2 ** p for p in range(1, 14)):
+    for n in (2 ** p for p in range(1, 21)):
         rtol, atol = fft_tol(n)
         worst_plain = worst_lib = 0.0
-        for rows in (1, 3, 128, 1024):
+        for rows in fft_sweep_rows(n):
             x = crandn(rows, n)
             before = x.clone()
             for fwd in (True, False):
                 got = fft_ops.fft(x, fwd)
                 torch.cuda.synchronize()
                 what = f"fft n={n} rows={rows} {'fwd' if fwd else 'inv'}"
+                s = fft_scale(n, fwd)
                 worst_plain = max(worst_plain, close(
-                    got, F.fft_plain(x, inverse=not fwd), rtol, atol,
-                    what + " vs plain"))
+                    got * s, F.fft_plain(x, inverse=not fwd) * s, rtol, atol,
+                    what + " vs plain (inverse times n)"))
                 lib = torch.fft.fft(x) if fwd else torch.fft.ifft(x)
-                worst_lib = max(worst_lib, close(got, lib, rtol, atol,
-                                                 what + " vs torch.fft"))
+                worst_lib = max(worst_lib, close(
+                    got * s, lib * s, rtol, atol,
+                    what + " vs torch.fft (inverse times n)"))
                 for br in (32, 128):
                     if not torch.equal(fft_ops.fft(x, fwd, block_rows=br),
                                        got):
@@ -215,9 +250,11 @@ def phase_kernels(dev):
                                              f"bit-identical")
             if not torch.equal(x, before):
                 raise AssertionError(f"fft n={n} rows={rows} wrote its input")
-        log(f"[kernels] fft n={n} rows 1/3/128/1024 fwd+inv: max|err| vs "
-            f"plain {worst_plain:.3e}, vs torch.fft {worst_lib:.3e} (rtol "
-            f"{rtol}, atol {atol:.2e}); block_rows 8/32/128 bit-identical; "
+        log(f"[kernels] fft n={n} rows "
+            f"{'/'.join(map(str, fft_sweep_rows(n)))} fwd+inv (inverse "
+            f"times n): max|err| vs plain {worst_plain:.3e}, vs torch.fft "
+            f"{worst_lib:.3e} (rtol {rtol}, atol {atol:.2e}); block_rows "
+            f"8/32/128 bit-identical; "
             f"input unwritten")
         errs["fft"] = max(errs["fft"], worst_plain)
     # fragments: views at a nonzero storage offset, one at an odd element
@@ -232,7 +269,8 @@ def phase_kernels(dev):
         for fwd in (True, False):
             got = fft_ops.fft(frag, fwd)
             want = F.fft_plain(frag.reshape(-1, n), inverse=not fwd)
-            e = max(e, close(got.reshape(-1, n), want, *fft_tol(n),
+            s = fft_scale(n, fwd)
+            e = max(e, close(got.reshape(-1, n) * s, want * s, *fft_tol(n),
                              f"fft fragment view ({what})"))
             errs["fft"] = max(errs["fft"], e)
             for br in (32, 128):
@@ -395,16 +433,18 @@ def _device_ms_all(fn, iters: int = 50):
     return sum(us) / iters / 1e3, len(us) / iters
 
 
-def _call_record(kernel_fn, kernel_name, library_fn, iters):
+def _call_record(kernel_fn, kernel_name, library_fn, iters, per_call=1):
     """A kernel's and its library call's times at one shape: pipelined
     call (CUDA events), one call + synchronise (median), enqueue (host
-    clock, no synchronisation) and device time (profiler)."""
+    clock, no synchronisation) and device time (profiler, summed over the
+    ``per_call`` kernels a call launches)."""
     lib_dev, lib_kernels = _device_ms_all(library_fn)
     return {
         "kernel_ms": _time_ms(kernel_fn, iters),
         "kernel_sync_ms": _sync_ms(kernel_fn),
         "kernel_enqueue_ms": _enqueue_ms(kernel_fn),
-        "kernel_device_ms": _device_ms(kernel_fn, kernel_name),
+        "kernel_device_ms": _device_ms(kernel_fn, kernel_name,
+                                       per_call=per_call),
         "library_ms": _time_ms(library_fn, iters),
         "library_sync_ms": _sync_ms(library_fn),
         "library_enqueue_ms": _enqueue_ms(library_fn),
@@ -415,10 +455,12 @@ def _call_record(kernel_fn, kernel_name, library_fn, iters):
 
 def phase_timing(dev):
     """FFT and ZIP at the radar path's one-row shapes (and the FFT at
-    8192 and at the autotuner's 8 MiB rung, 1024 rows of 1024): the
-    kernel and its library call (``torch.fft.fft``, ``a * b``) each by
-    :func:`_call_record`, the plain version's pipelined time and the
-    bound."""
+    8192, at the autotuner's 8 MiB rung, 1024 rows of 1024, and at 16384,
+    32768 and 2^20, 128 x 16384 and 64 x 65536, two launches a call): the kernel and its library call
+    (``torch.fft.fft``, ``a * b``) each by :func:`_call_record`, the plain
+    version's pipelined time and the bound (one pass over the data; past
+    8192 also the bound of the four-step's two passes, each reading and
+    writing every value, beside the step twiddles' 8 bytes a value)."""
     from repro_torch.kernels.fft import fft as F
     from repro_torch.kernels.fft import ops as fft_ops
     from repro_torch.kernels.zip import ops as zip_ops
@@ -431,12 +473,18 @@ def phase_timing(dev):
                         generator=gen)
         bound_ms, bound_by = _bound(16.0 * nrows * n,
                                     5.0 * nrows * n * math.log2(n))
+        four_step = n > F.TABLE_N
         rec = {"kernel": "fft", "rows": nrows, "n": n,
                **_call_record(lambda: fft_ops.fft(x), "fft",
-                              lambda: torch.fft.fft(x), 2000 // nrows + 50),
+                              lambda: torch.fft.fft(x), 2000 // nrows + 50,
+                              per_call=2 if four_step else 1),
                "plain_ms": _time_ms(lambda: F.fft_plain(x),
                                     max(200 // nrows, 5), warmup=3),
                "bound_ms": bound_ms, "bound_by": bound_by}
+        if four_step:
+            rec["bound_two_pass_ms"] = _bound(32.0 * nrows * n, 0.0)[0]
+            rec["bound_two_pass_twiddles_ms"] = _bound(
+                32.0 * nrows * n + 8.0 * n, 0.0)[0]
         rows.append(rec)
         log("[timing] " + json.dumps(rec))
     for n in ZIP_TIMED_N:
@@ -1660,6 +1708,184 @@ def phase_dense_check(dev):
         f"({[r.generated for r in reqs]})")
 
 
+# ----------------------------------------------------- 10. paper suite
+#: the gated benches of the paper suite, each with a record in
+#: benchmarks/baselines/ (smoke sizes) and benchmarks/baselines/nightly/
+#: (full depth; graph's nightly record is its smoke record)
+GATED = ("graph", "pressure", "stream", "topology")
+BASELINES = ROOT / "benchmarks" / "baselines"
+#: where the JAX package's own smoke gate differs from its committed
+#: baseline, its value (one ulp above it; tests/test_torch_benches.py
+#: holds the port to the JAX package's value on the CPU)
+JAX_SMOKE_GATES = {"topology": {"spill_makespan_model":
+                                0.0006992620800000002}}
+#: paper-figure rows each bench emits at its default sizes
+PAPER_ROWS = {"fig5_2fft_": 12, "table1_2fzf_": 14, "fig8_3zip_": 6,
+              "fig7_": 18, "table2_": 6, "fig10_": 3, "table3_": 10}
+
+
+class RuntimeTaskCounter:
+    """fft/ifft and zip tasks the runtimes ran on device PEs, counted
+    where every runtime runs a kernel (``Runtime._run_kernel``, serial
+    and graph alike), with the longest FFT row among them."""
+
+    def __init__(self):
+        self.fft = self.zip = self.max_fft_n = 0
+        self.other = []
+        self._lock = threading.Lock()
+        self._orig = None
+
+    def __enter__(self):
+        from repro_torch.core.runtime import Runtime
+
+        orig = self._orig = Runtime._run_kernel
+        counter = self
+
+        def run_kernel(rt, task, pe, ins):
+            out = orig(rt, task, pe, ins)
+            if pe.kind != "cpu":
+                with counter._lock:
+                    if task.op in ("fft", "ifft"):
+                        counter.fft += 1
+                        counter.max_fft_n = max(counter.max_fft_n,
+                                                task.inputs[0].shape[-1])
+                    elif task.op == "zip":
+                        counter.zip += 1
+                    else:
+                        counter.other.append(task.op)
+            return out
+
+        Runtime._run_kernel = run_kernel
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core.runtime import Runtime
+
+        Runtime._run_kernel = self._orig
+        return False
+
+
+def _gates_equal(paths, baselines: Path, what: str, override=None):
+    """The port's ``check_regression`` over ``paths`` against
+    ``baselines`` (exit 0 required), then every gated metric exactly equal
+    to the baseline's (or to ``override``'s value), both sides logged."""
+    from benchmarks_torch import check_regression
+
+    rc = check_regression.main([str(p) for p in paths]
+                               + ["--baselines", str(baselines)])
+    if rc != 0:
+        raise AssertionError(f"check_regression ({what}) exited {rc}")
+    for path in paths:
+        name = json.loads(path.read_text())["bench"]
+        got = json.loads(path.read_text())["gate"]
+        base = json.loads((baselines / path.name).read_text())["gate"]
+        want = {**base, **(override or {}).get(name, {})}
+        for k in sorted(base):
+            log(f"[paper] {what} {name}.{k}: baseline {base[k]!r}"
+                + (f", JAX package {want[k]!r}" if want[k] != base[k]
+                   else "") + f", port {got.get(k)!r}")
+        if got != want:
+            raise AssertionError(f"{what} {name}: gate {got} != {want}")
+
+
+def phase_paper_suite(out_dir: Path):
+    """The paper's benchmark suite on ``cuda:0`` (device ``None``): the
+    gated benches' smokes, ``benchmarks_torch.run --json-dir`` at full
+    depth (graph at n 32768, pressure, stream and topology at n 16384),
+    their gates against ``benchmarks/baselines/`` and ``.../nightly/``,
+    the paper-figure benches at their default sizes, and both examples
+    as subprocesses; every FFT/ZIP task on a device PE must have launched
+    its kernel, with rows past 8192 among them."""
+    from benchmarks_torch import (bench_2fft, bench_2fzf, bench_3zip,
+                                  bench_alloc, bench_apps, bench_graph,
+                                  bench_marking, bench_pressure,
+                                  bench_stream, bench_topology, common)
+    from benchmarks_torch import run as bench_run
+
+    smoke_dir, full_dir = out_dir / "smoke", out_dir / "nightly"
+    smoke_dir.mkdir(parents=True, exist_ok=True)
+    full_dir.mkdir(parents=True, exist_ok=True)
+    times = {}
+    reset_counts()
+    with RuntimeTaskCounter() as counter:
+        t0 = time.perf_counter()
+        bench_graph.smoke(str(smoke_dir / "BENCH_graph.json"))
+        bench_pressure.run_pressure(ways=4, n=1 << 12, smoke=True,
+                                    json_path=str(smoke_dir
+                                                  / "BENCH_pressure.json"))
+        bench_stream.run_stream(clients=4, chains=6, n=1 << 13, smoke=True,
+                                json_path=str(smoke_dir
+                                              / "BENCH_stream.json"))
+        bench_topology.run_topology(ways=4, n=1 << 13, depth=2, smoke=True,
+                                    json_path=str(smoke_dir
+                                                  / "BENCH_topology.json"))
+        times["smokes_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        bench_run.main(["--only", ",".join(GATED), "--json-dir",
+                        str(full_dir)])
+        times["full_depth_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        start = len(common.ROWS)
+        bench_2fft.run()
+        bench_2fzf.run()
+        bench_3zip.run()
+        bench_alloc.run()
+        bench_apps.run()
+        bench_marking.run()
+        rows = common.ROWS[start:]
+        times["paper_figures_s"] = time.perf_counter() - t0
+    launches = read_counts()
+
+    _gates_equal([smoke_dir / f"BENCH_{b}.json" for b in GATED], BASELINES,
+                 "smoke", JAX_SMOKE_GATES)
+    _gates_equal([full_dir / f"BENCH_{b}.json" for b in GATED],
+                 BASELINES / "nightly", "nightly")
+
+    if any("MISMATCH" in r for r in rows):
+        raise AssertionError("a paper-figure row reads MISMATCH: "
+                             + "; ".join(r for r in rows if "MISMATCH" in r))
+    for prefix, want in PAPER_ROWS.items():
+        got = sum(r.startswith(prefix) for r in rows)
+        if got != want:
+            raise AssertionError(f"{got} paper rows {prefix}*, not {want}")
+    if sum("OK" in r for r in rows if r.startswith("fig5_2fft_")) != 12:
+        raise AssertionError("2FFT copy elimination not OK in every row")
+    (out_dir / "rows.csv").write_text("\n".join(rows) + "\n")
+    log(f"[paper] {len(rows)} paper-figure rows (above) also in "
+        f"{out_dir / 'rows.csv'}")
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for example in ("quickstart.py", "radar_pipeline.py"):
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "examples_torch" / example)],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+        for line in proc.stdout.splitlines()[-8:]:
+            log(f"[paper] {example}: {line}")
+        if proc.returncode != 0:
+            raise AssertionError(f"{example} exited {proc.returncode}:\n"
+                                 f"{proc.stderr[-3000:]}")
+        if (example == "quickstart.py"
+                and "reference == rimms output" not in proc.stdout):
+            raise AssertionError("quickstart.py did not compare policies")
+    times["examples_s"] = time.perf_counter() - t0
+
+    log(f"[paper] device tasks fft/ifft {counter.fft} (longest row "
+        f"{counter.max_fft_n}), zip {counter.zip}; kernel launches "
+        f"{launches}; {times}")
+    if counter.other:
+        raise AssertionError(f"unexpected device ops {set(counter.other)}")
+    if (launches["fft"], launches["zip"]) != (counter.fft, counter.zip):
+        raise AssertionError(f"launch counts {launches} != device tasks "
+                             f"fft {counter.fft}, zip {counter.zip}")
+    if counter.fft <= 0 or counter.zip <= 0 or counter.max_fft_n <= 8192:
+        raise AssertionError("the paper suite ran no FFT past 8192 or no "
+                             "ZIP on a device PE")
+    return {"launches": launches, "device_tasks": {
+        "fft": counter.fft, "zip": counter.zip,
+        "max_fft_n": counter.max_fft_n}, "seconds": times}
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     t_start = time.perf_counter()
@@ -1742,6 +1968,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_dense_check(dev)
 
+    t0 = time.perf_counter()
+    suite = phase_paper_suite(ROOT / "build" / "paper_suite")
+    log(f"[paper] phase in {time.perf_counter() - t0:.1f}s")
+
     def pick(kernel, key, value):
         return next(r for r in timing
                     if r["kernel"] == kernel and r.get(key) == value)
@@ -1791,6 +2021,19 @@ def main() -> int:
                     "autotune_launches", "launches_x_excess_ms")}
                 for r in timing if r["kernel"] == kname]}
                if kname in ("mlstm", "rg_lru") else {}),
+            # FFT: every timed shape, one launch up to 8192 and the
+            # four-step's two past it; FFT and ZIP: the paper suite's
+            # launches (phase 10)
+            **({"timed_shapes": [
+                {k: r.get(k) for k in (
+                    "rows", "n", "kernel_ms", "kernel_sync_ms",
+                    "kernel_device_ms", "library_ms", "library_device_ms",
+                    "plain_ms", "bound_ms", "bound_by", "bound_two_pass_ms",
+                    "bound_two_pass_twiddles_ms")}
+                for r in timing if r["kernel"] == "fft"]}
+               if kname == "fft" else {}),
+            **({"paper_suite_launches": suite["launches"][kname]}
+               if kname in ("fft", "zip") else {}),
             # FFT and ZIP: what a runtime task pays (one call then a
             # synchronise), the host's share, the library's device time
             **{k: t[k] for k in ("kernel_sync_ms", "kernel_enqueue_ms",

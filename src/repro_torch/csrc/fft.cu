@@ -3,10 +3,12 @@
 //
 // Replaces the Pallas kernel src/repro/kernels/fft/fft.py::_fft_kernel
 // (launched by fft_planes): the forward DFT along each row, or the inverse
-// scaled by 1/N, of N = 2^p complex values, p from 1 to 13, in natural
-// order.  The inverse is computed as conj(fft(conj x)) / N: the input is
-// conjugated as it is loaded and the output as it is stored, which negates
-// exactly and so equals conjugating every twiddle.
+// scaled by 1/N, of N = 2^p complex values, p from 1 to 20, in natural
+// order: one launch of fft_rows up to N = 8192, two of fft_four_step above
+// (see "Above 8192" at the end of this note).  The inverse is computed as
+// conj(fft(conj x)) / N: the input is conjugated as it is loaded and the
+// output as it is stored, which negates exactly and so equals conjugating
+// every twiddle.
 //
 // What bounds it on the H100: a row moves 16 N bytes for 5 N log2 N flops
 // (at most 4.1 flops a byte, under the FP32 ridge of 67 TFLOP/s over
@@ -61,6 +63,29 @@
 // multiply-add changes a result between builds.  Loads are 8 bytes, so a
 // row may start at any element (a fragment view); the input is never
 // written.
+//
+// Above 8192.  A row of 16384 or more complex64 values (128 KB) no longer
+// fits a block's two exchange buffers, and a 32768-point row alone (256 KB)
+// is more than the 228 KB of an SM's shared memory, so N = N1 N2 (N1 =
+// 2^ceil(p/2), N2 = 2^floor(p/2), both <= 1024 up to N = 2^20) goes through
+// the four-step (Bailey) algorithm in two launches of fft_four_step, with
+// the row seen as N1 x N2 (element n1 N2 + n2):
+//   pass 1: the N1-point DFT of each column n2, times w_N^(n2 k1), into a
+//           workspace row of the wrapper's at k1 N2 + n2;
+//   pass 2: the N2-point DFT of each workspace row k1, into the output at
+//           k1 + N1 k2 -- the transposed, natural order.
+// Each block takes kTile = 8 adjacent lines (columns in pass 1, workspace
+// rows in pass 2) so every strided load and store is a 64-byte run of
+// adjacent lines: whole sectors.  The block copies its lines into shared
+// memory, runs the same register passes on them as fft_rows (thread layout,
+// twiddle tables and swizzle of an N1- or N2-point row), and copies the
+// result out; the step twiddles w_N^(n2 k1) come from a table of N entries
+// laid out as the workspace (computed in float64 and rounded once by the
+// wrapper), read coalesced beside the stores.  The inverse conjugates on
+// pass 1's loads and pass 2's stores.  A row's blocks and arithmetic depend
+// on N alone, so neither the batch nor block_rows changes its bits.  It
+// moves each value through device memory twice (2 x 16 N bytes, and 8 N of
+// step twiddles): the strided loads of pass 1 are where its time goes.
 
 #include <cuda_runtime.h>
 
@@ -68,9 +93,13 @@
 
 namespace {
 
-constexpr int kMaxLog = 13;
+constexpr int kMaxLog = 13;     // one launch of fft_rows
+constexpr int kMaxLog4 = 20;    // two launches of fft_four_step
 constexpr int kMaxThreads = 512;
 constexpr int kMaxDevices = 64;
+// lines a four-step block takes side by side: 8 complex64 = 64 bytes
+constexpr int kTileLog = 3;
+constexpr int kTile = 1 << kTileLog;
 
 // log2 of the values a thread holds for rows of 2^log (radix 8 up to 512)
 __host__ __device__ constexpr int values_log(int log) {
@@ -169,10 +198,12 @@ __device__ __forceinline__ void load_twiddles(float2 (&w)[Plan<LOG>::W],
 }
 
 // Pass Q of a row of 2^LOG held by thread t.  On entry v holds the pass's
-// inputs (pass 0) or they wait in shared buffer `in` (later passes), and w
-// holds the pass's twiddles; on exit the outputs are in shared buffer `out`
-// or, after the last pass, in `dst`, and w holds the next pass's twiddles.
-template <int LOG, int Q>
+// inputs (pass 0 of a row) or they wait in shared buffer `in` (later
+// passes, and every pass of a TILE: a four-step block's lines), and w
+// holds the pass's twiddles; on exit the outputs are in shared buffer
+// `out` or, after the last pass of a row, in `dst`, and w holds the next
+// pass's twiddles.
+template <int LOG, int Q, bool TILE>
 __device__ __forceinline__ void fft_pass(float2 (&v)[Plan<LOG>::V],
                                          float2 (&w)[Plan<LOG>::W],
                                          const float2* __restrict__ tw,
@@ -183,8 +214,8 @@ __device__ __forceinline__ void fft_pass(float2 (&v)[Plan<LOG>::V],
   using P = Plan<LOG>;
   constexpr int B = P::bits(Q), R = 1 << B, BF = P::V / R;
   constexpr int NSLOG = P::VLOG * Q, NS = 1 << NSLOG;
-  if constexpr (Q > 0) {
-    __syncthreads();  // pass Q - 1's outputs are in `in`
+  if constexpr (Q > 0 || TILE) {
+    __syncthreads();  // pass Q - 1's outputs (or a tile's lines) are in `in`
 #pragma unroll
     for (int i = 0; i < BF; ++i) {
       const int j = t + i * P::T;
@@ -192,9 +223,11 @@ __device__ __forceinline__ void fft_pass(float2 (&v)[Plan<LOG>::V],
       for (int r = 0; r < R; ++r) {
         v[i * R + r] = in[P::swz(base + j + r * (P::N / R))];
       }
+      if constexpr (Q > 0) {
 #pragma unroll
-      for (int r = 1; r < R; ++r) {
-        v[i * R + r] = cmul(v[i * R + r], w[i * (R - 1) + r - 1]);
+        for (int r = 1; r < R; ++r) {
+          v[i * R + r] = cmul(v[i * R + r], w[i * (R - 1) + r - 1]);
+        }
       }
     }
   }
@@ -208,7 +241,7 @@ __device__ __forceinline__ void fft_pass(float2 (&v)[Plan<LOG>::V],
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const float2 y = v[i * R + r];
-      if constexpr (Q == P::PASSES - 1) {
+      if constexpr (Q == P::PASSES - 1 && !TILE) {
         if (active) {
           dst[d0 + r * NS] = make_float2(__fmul_rn(y.x, scale),
                                          __fmul_rn(__fmul_rn(y.y, sgn), scale));
@@ -220,7 +253,7 @@ __device__ __forceinline__ void fft_pass(float2 (&v)[Plan<LOG>::V],
   }
 }
 
-template <int LOG, int Q>
+template <int LOG, int Q, bool TILE>
 __device__ __forceinline__ void fft_passes(float2 (&v)[Plan<LOG>::V],
                                            float2 (&w)[Plan<LOG>::W],
                                            const float2* __restrict__ tw,
@@ -230,9 +263,10 @@ __device__ __forceinline__ void fft_passes(float2 (&v)[Plan<LOG>::V],
                                            float scale) {
   if constexpr (Q < Plan<LOG>::PASSES) {
     // pass Q reads the buffer pass Q - 1 wrote and writes the other one
-    fft_pass<LOG, Q>(v, w, tw, (Q & 1) ? s0 : s1, (Q & 1) ? s1 : s0, dst, t,
-                     base, active, sgn, scale);
-    fft_passes<LOG, Q + 1>(v, w, tw, s0, s1, dst, t, base, active, sgn, scale);
+    fft_pass<LOG, Q, TILE>(v, w, tw, (Q & 1) ? s0 : s1, (Q & 1) ? s1 : s0,
+                           dst, t, base, active, sgn, scale);
+    fft_passes<LOG, Q + 1, TILE>(v, w, tw, s0, s1, dst, t, base, active, sgn,
+                                 scale);
   }
 }
 
@@ -271,8 +305,77 @@ __global__ void __launch_bounds__(kMaxThreads)
       if (active) a = __ldg(x + t + r * (P::N / R0));
       v[r] = make_float2(a.x, __fmul_rn(a.y, sgn));
     }
-    fft_passes<LOG, 0>(v, w, tw, s0, s1, dst + row * P::N, t, base, active,
-                       sgn, scale);
+    fft_passes<LOG, 0, false>(v, w, tw, s0, s1, dst + row * P::N, t, base,
+                              active, sgn, scale);
+  }
+}
+
+// One pass of the four-step FFT of rows of N = 2^LOG M (M = 2^mlog lines
+// of 2^LOG a row).  Block (row, b) takes lines b kTile + c, c < kTile, one
+// to each run of T threads.  FIRST: line c is column n2 = b kTile + c of the
+// row seen as 2^LOG x M (element e at e M + n2), conjugated when sgn = -1;
+// element e of its DFT, times step[e M + n2] = w_N^(n2 e), goes to e M + n2
+// of the workspace.  Otherwise: line c is workspace row k1 = b kTile + c
+// (element e at k1 2^LOG + e); element e of its DFT goes to k1 + e M,
+// conjugated when sgn = -1 and scaled.
+template <int LOG, bool FIRST>
+__global__ void __launch_bounds__(kMaxThreads)
+    fft_four_step(const float2* __restrict__ src, float2* __restrict__ dst,
+                  const float2* __restrict__ tw,
+                  const float2* __restrict__ step, int mlog, float sgn,
+                  float scale) {
+  using P = Plan<LOG>;
+  constexpr int THREADS = kTile * P::T;  // kTile lines of V values a thread
+  extern __shared__ float2 smem[];
+  float2* s0 = smem;
+  float2* s1 = smem + kTile * P::N;
+  const int tiles_log = mlog - kTileLog;
+  const long long row_off = (long long)(blockIdx.x >> tiles_log)
+                            << (LOG + mlog);
+  const int col0 = (blockIdx.x & ((1 << tiles_log) - 1)) << kTileLog;
+  src += row_off;
+  dst += row_off;
+  // the tile's lines into s1 (what pass 0 reads), line c at c 2^LOG: in
+  // pass 1 a warp reads 4 elements of 8 adjacent columns, in pass 2 32
+  // adjacent elements of a workspace row
+#pragma unroll
+  for (int k = 0; k < P::V; ++k) {
+    const int idx = threadIdx.x + k * THREADS;
+    int c, e;
+    float2 a;
+    if constexpr (FIRST) {
+      c = idx & (kTile - 1);
+      e = idx >> kTileLog;
+      a = __ldg(src + ((long long)e << mlog) + col0 + c);
+      a.y = __fmul_rn(a.y, sgn);
+    } else {
+      c = idx >> LOG;
+      e = idx & (P::N - 1);
+      a = __ldg(src + ((long long)(col0 + c) << LOG) + e);
+    }
+    s1[P::swz(c * P::N + e)] = a;
+  }
+  const int rloc = threadIdx.x >> P::TLOG;
+  const int t = threadIdx.x & (P::T - 1);
+  float2 v[P::V];
+  float2 w[P::W];
+  fft_passes<LOG, 0, true>(v, w, tw, s0, s1, nullptr, t, rloc * P::N, true,
+                           1.0f, 1.0f);
+  __syncthreads();  // the last pass's outputs are all in `res`
+  const float2* res = ((P::PASSES - 1) & 1) ? s1 : s0;
+#pragma unroll
+  for (int k = 0; k < P::V; ++k) {
+    const int idx = threadIdx.x + k * THREADS;
+    const int c = idx & (kTile - 1);
+    const int e = idx >> kTileLog;
+    const float2 y = res[P::swz(c * P::N + e)];
+    const long long off = ((long long)e << mlog) + col0 + c;
+    if constexpr (FIRST) {
+      dst[off] = cmul(y, __ldg(step + off));
+    } else {
+      dst[off] = make_float2(__fmul_rn(y.x, scale),
+                             __fmul_rn(__fmul_rn(y.y, sgn), scale));
+    }
   }
 }
 
@@ -293,9 +396,23 @@ cudaError_t allow_smem_one() {
                               (int)smem_bytes(LOG, rpg));
 }
 
+// Shared bytes of a four-step block over lines of 2^log: two buffers of
+// kTile lines.
+size_t tile_smem_bytes(int log) {
+  return 2 * ((size_t)kTile << log) * sizeof(float2);
+}
+
+template <int LOG, bool FIRST>
+cudaError_t allow_smem_tile() {
+  return cudaFuncSetAttribute(fft_four_step<LOG, FIRST>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)tile_smem_bytes(LOG));
+}
+
 // The opt-in above 48 KB for every N of more than one pass (a block of 512
 // threads holds up to 8192 values, two buffers of them take 128 KB), at
-// the most any rows_per_group the wrapper gives, once per device.
+// the most any rows_per_group the wrapper gives, and for the four-step
+// passes (up to 128 KB over lines of 1024), once per device.
 cudaError_t allow_smem() {
   static std::atomic<int> allowed[kMaxDevices];
   int dev = 0;
@@ -307,7 +424,11 @@ cudaError_t allow_smem() {
       allow_smem_one<4>(),  allow_smem_one<5>(),  allow_smem_one<6>(),
       allow_smem_one<7>(),  allow_smem_one<8>(),  allow_smem_one<9>(),
       allow_smem_one<10>(), allow_smem_one<11>(), allow_smem_one<12>(),
-      allow_smem_one<13>()};
+      allow_smem_one<13>(),
+      allow_smem_tile<7, true>(),  allow_smem_tile<7, false>(),
+      allow_smem_tile<8, true>(),  allow_smem_tile<8, false>(),
+      allow_smem_tile<9, true>(),  allow_smem_tile<9, false>(),
+      allow_smem_tile<10, true>(), allow_smem_tile<10, false>()};
   for (const cudaError_t e : errs) {
     if (e != cudaSuccess) return e;
   }
@@ -321,6 +442,35 @@ void launch(const float2* in, float2* out, const float2* tw, long long rows,
             float sgn, float scale, cudaStream_t stream) {
   fft_rows<LOG><<<(unsigned)grid, threads, smem, stream>>>(
       in, out, tw, rows, rpg, gpb, sgn, scale);
+}
+
+template <int LOG, bool FIRST>
+void launch_tile(const float2* in, float2* out, const float2* tw,
+                 const float2* step, long long grid, int mlog, int smem,
+                 float sgn, float scale, cudaStream_t stream) {
+  fft_four_step<LOG, FIRST><<<(unsigned)grid, kTile * Plan<LOG>::T, smem,
+                              stream>>>(in, out, tw, step, mlog, sgn, scale);
+}
+
+// One four-step pass over lines of 2^log, mlog lines a row.
+void launch_four_step_pass(bool first, int log, const float2* in,
+                           float2* out, const float2* tw, const float2* step,
+                           long long grid, int mlog, int smem, float sgn,
+                           float scale, cudaStream_t st) {
+  switch (log * 2 + (first ? 1 : 0)) {
+#define RIMMS_FFT4_CASE(L)                                                  \
+  case 2 * L + 1:                                                           \
+    launch_tile<L, true>(in, out, tw, step, grid, mlog, smem, sgn, scale,  \
+                         st);                                               \
+    break;                                                                  \
+  case 2 * L:                                                               \
+    launch_tile<L, false>(in, out, tw, step, grid, mlog, smem, sgn, scale, \
+                          st);                                              \
+    break;
+    RIMMS_FFT4_CASE(7) RIMMS_FFT4_CASE(8) RIMMS_FFT4_CASE(9)
+    RIMMS_FFT4_CASE(10)
+#undef RIMMS_FFT4_CASE
+  }
 }
 
 }  // namespace
@@ -379,5 +529,63 @@ extern "C" int rimms_fft_c64(const void* in, void* out, const FftLaunch* p,
     RIMMS_FFT_CASE(12) RIMMS_FFT_CASE(13)
 #undef RIMMS_FFT_CASE
   }
+  return (int)cudaGetLastError();
+}
+
+// One four-step call's tables, built once per (device, n, rows, inverse)
+// by the wrapper (repro_torch.kernels.fft.fft._launch4_args).  The
+// geometry is N's alone and derived here.
+struct Fft4Launch {
+  const void* twiddles1;  // the N1-point pass table (fft.pass_twiddles)
+  const void* twiddles2;  // the N2-point pass table
+  const void* step;       // w_N^(n2 k1) at k1 N2 + n2 (fft.step_twiddles)
+  long long rows;
+  int n;
+  int inverse;
+};
+
+// in, out, work: p->rows x p->n complex64, distinct; in 8-byte aligned, at
+// any element; work the wrapper's scratch.  n a power of two from 2^14 to
+// 2^20, N = N1 N2 with N1 = 2^ceil(log2 n / 2).  Pass 1 takes the N2
+// columns of each row, pass 2 the N1 workspace rows, kTile lines a block
+// (kTile * threads_per_row threads, two shared buffers of the lines).
+// Launches pass 1 (in -> work) and pass 2 (work -> out) on `stream`;
+// returns the first CUDA error (0 on success), or cudaErrorInvalidValue
+// for arguments it does not take.
+extern "C" int rimms_fft4_c64(const void* in, void* out, void* work,
+                              const Fft4Launch* p, void* stream) {
+  const int n = p->n;
+  const long long rows = p->rows;
+  int log = 0;
+  while (log < 31 && (1 << log) < n) ++log;
+  const int l1 = log - log / 2, l2 = log / 2;
+  if ((1 << log) != n || log <= kMaxLog || log > kMaxLog4 || rows < 0 ||
+      p->twiddles1 == nullptr || p->twiddles2 == nullptr ||
+      p->step == nullptr || work == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long grid1 = rows << (l2 - kTileLog);
+  const long long grid2 = rows << (l1 - kTileLog);
+  if (grid1 > 0x7fffffffLL || grid2 > 0x7fffffffLL) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (rows == 0) return 0;
+  const int smem1 = (int)tile_smem_bytes(l1), smem2 = (int)tile_smem_bytes(l2);
+  if (smem1 > 48 * 1024 || smem2 > 48 * 1024) {
+    const cudaError_t err = allow_smem();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const float sgn = p->inverse ? -1.0f : 1.0f;
+  const float scale = p->inverse ? 1.0f / (float)n : 1.0f;
+  const auto st = (cudaStream_t)stream;
+  auto* ws = (float2*)work;
+  launch_four_step_pass(true, l1, (const float2*)in, ws,
+                        (const float2*)p->twiddles1, (const float2*)p->step,
+                        grid1, l2, smem1, sgn, 1.0f, st);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  launch_four_step_pass(false, l2, ws, (float2*)out,
+                        (const float2*)p->twiddles2, nullptr, grid2, l1,
+                        smem2, sgn, scale, st);
   return (int)cudaGetLastError();
 }

@@ -42,9 +42,18 @@ def cuda():
 
 def fft_tol(n):
     # tests/test_kernels.py's tolerances: f32 twiddles, and the kernel
-    # sums in another order than the plain version
+    # sums in another order than the plain version.  They are sized for
+    # forward outputs (about sqrt(n)); an inverse (about 1/sqrt(n)) is
+    # compared times n, which a power of two scales exactly.
     rtol = 3e-3 if n >= 2048 else 5e-4
     return rtol, rtol * math.sqrt(n)
+
+
+def assert_fft_close(got, want, n, fwd):
+    """got within fft_tol(n) of want, both times n for an inverse."""
+    rtol, atol = fft_tol(n)
+    s = 1 if fwd else n
+    torch.testing.assert_close(got * s, want * s, rtol=rtol, atol=atol)
 
 
 @pytest.mark.parametrize("n", [2, 64, 512, 2048, 8192])
@@ -52,11 +61,9 @@ def test_fft_kernel_matches_plain(cuda, n):
     gen = torch.Generator(device=cuda).manual_seed(n)
     x = torch.randn(3, n, dtype=torch.complex64, device=cuda, generator=gen)
     before = F.launches
-    rtol, atol = fft_tol(n)
     for fwd in (True, False):
         got = fft_ops.fft(x, fwd)
-        torch.testing.assert_close(got, F.fft_plain(x, inverse=not fwd),
-                                   rtol=rtol, atol=atol)
+        assert_fft_close(got, F.fft_plain(x, inverse=not fwd), n, fwd)
         assert torch.equal(got, fft_ops.fft(x, fwd, block_rows=32))
     assert F.launches == before + 4
 
@@ -79,15 +86,13 @@ def test_fft_kernel_every_length_and_rows(cuda, n):
     forward and inverse, against the plain version; block_rows 8/32/128
     bit-identical; the input left unwritten."""
     gen = torch.Generator(device=cuda).manual_seed(n + 1)
-    rtol, atol = fft_tol(n)
     for rows in (1, 3, 128, 1024):
         x = torch.randn(rows, n, dtype=torch.complex64, device=cuda,
                         generator=gen)
         before = x.clone()
         for fwd in (True, False):
             got = fft_ops.fft(x, fwd)
-            torch.testing.assert_close(got, F.fft_plain(x, inverse=not fwd),
-                                       rtol=rtol, atol=atol)
+            assert_fft_close(got, F.fft_plain(x, inverse=not fwd), n, fwd)
             for br in (32, 128):
                 assert torch.equal(fft_ops.fft(x, fwd, block_rows=br), got)
         assert torch.equal(x, before)
@@ -104,11 +109,49 @@ def test_fft_kernel_rows_at_odd_offset(cuda, offset, n):
                        device=cuda, generator=gen)
     before = base.clone()
     view = base[offset:offset + 2 * n].view(2, n)
-    rtol, atol = fft_tol(n)
     for fwd in (True, False):
         got = fft_ops.fft(view, fwd)
-        torch.testing.assert_close(got, F.fft_plain(view, inverse=not fwd),
-                                   rtol=rtol, atol=atol)
+        assert_fft_close(got, F.fft_plain(view, inverse=not fwd), n, fwd)
+        assert torch.equal(got, fft_ops.fft(view.clone(), fwd))
+    assert torch.equal(base, before)
+
+
+@pytest.mark.parametrize("n", [2 ** p for p in range(14, 21)])
+def test_fft_kernel_four_step_every_large_length(cuda, n):
+    """Every power of two from 16384 to 2^20 (two launches, one count) in
+    1 and 3 rows, forward and inverse, against the plain version and
+    torch.fft; block_rows has no effect; a row's bits do not depend on
+    the rows beside it; the input is left unwritten."""
+    gen = torch.Generator(device=cuda).manual_seed(n + 3)
+    for rows in (1, 3):
+        x = torch.randn(rows, n, dtype=torch.complex64, device=cuda,
+                        generator=gen)
+        before = x.clone()
+        for fwd in (True, False):
+            count = F.launches
+            got = fft_ops.fft(x, fwd)
+            assert F.launches == count + 1
+            assert_fft_close(got, F.fft_plain(x, inverse=not fwd), n, fwd)
+            lib = torch.fft.fft(x) if fwd else torch.fft.ifft(x)
+            assert_fft_close(got, lib, n, fwd)
+            for br in (32, 128):
+                assert torch.equal(fft_ops.fft(x, fwd, block_rows=br), got)
+            assert torch.equal(fft_ops.fft(x[-1:].clone(), fwd), got[-1:])
+        assert torch.equal(x, before)
+
+
+@pytest.mark.parametrize("offset,n", [(1, 16384), (3, 32768)])
+def test_fft_kernel_four_step_at_odd_offset(cuda, offset, n):
+    """Large rows of a view at an odd element: bit-equal to the same rows
+    at an aligned address, the base left unwritten."""
+    gen = torch.Generator(device=cuda).manual_seed(offset + n)
+    base = torch.randn(offset + 2 * n + 1, dtype=torch.complex64,
+                       device=cuda, generator=gen)
+    before = base.clone()
+    view = base[offset:offset + 2 * n].view(2, n)
+    for fwd in (True, False):
+        got = fft_ops.fft(view, fwd)
+        assert_fft_close(got, F.fft_plain(view, inverse=not fwd), n, fwd)
         assert torch.equal(got, fft_ops.fft(view.clone(), fwd))
     assert torch.equal(base, before)
 

@@ -291,5 +291,211 @@ def test_cpu_path_keeps_shape_and_matches_pallas(shape, forward):
     out = ops.fft(torch.from_numpy(x), forward)
     assert out.shape == shape and out.dtype == torch.complex64
     want = np.asarray(jfft_ops.fft(x, forward=forward))
-    np.testing.assert_allclose(out.numpy(), want, rtol=5e-4,
+    # the tolerance is sized for forward outputs: an inverse times n
+    s = 1 if forward else shape[-1]
+    np.testing.assert_allclose(out.numpy() * s, want * s, rtol=5e-4,
                                atol=5e-4 * math.sqrt(shape[-1]))
+
+
+# ------------------------------------------------------- four-step plan
+#: N past one launch: the four-step passes (csrc/fft.cu fft_four_step)
+NS4 = [2 ** p for p in range(14, 21)]
+
+
+def test_max_n_and_the_split_point():
+    assert F.MAX_N == 2 ** 20 and F.TABLE_N == 8192 and F.TILE == 8
+
+
+@pytest.mark.parametrize("n", NS4)
+def test_four_step_split(n):
+    """N = N1 N2 with N1 = 2^ceil(p/2) >= N2 = 2^floor(p/2): both lines
+    take more than one register pass (the tile kernel's passes start
+    from shared memory) and at most 1024 values (a block of TILE lines
+    fits in shared memory)."""
+    n1, n2 = F.split(n)
+    assert n1 * n2 == n and n1 in (n2, 2 * n2)
+    for length in (n1, n2):
+        assert 128 <= length <= 1024
+        assert len(F.radices(length)) >= 2
+
+
+def _four_step_geometry(n, rows):
+    """``(threads, grid, smem)`` of both four-step passes as
+    ``rimms_fft4_c64`` derives them from N: pass 1 takes the N2 columns
+    of each row (N1 long), pass 2 the N1 workspace rows (N2 long),
+    :data:`F.TILE` lines a block with a line's threads each and two
+    shared buffers of them."""
+    n1, n2 = F.split(n)
+
+    def geometry(length, lines):
+        return (F.TILE * (length // F.values(length)),
+                rows * (lines // F.TILE), 2 * F.TILE * length * 8)
+
+    return geometry(n1, n2), geometry(n2, n1)
+
+
+@pytest.mark.parametrize("n", NS4)
+def test_four_step_plan_within_card_limits(n):
+    """The geometry the C entry derives fits the card at every N it takes
+    and at every row count the sweeps use (grid up to 2^20 rows)."""
+    for rows in ROWS + (2 ** 20,):
+        for threads, grid, smem in _four_step_geometry(n, rows):
+            assert 1 <= threads <= KERNEL_MAX_THREADS
+            assert 1 <= grid <= MAX_GRID_X
+            assert smem <= MAX_SMEM
+
+
+@pytest.mark.parametrize("n", [2 ** 14, 2 ** 20])
+def test_four_step_call_takes_one_workspace_of_the_input_shape(
+        monkeypatch, n):
+    """A four-step call makes its output and one workspace, both of x's
+    shape and type, and hands the kernel three distinct buffers (the
+    library and the launch are stand-ins, so this runs on the CPU)."""
+    made, calls = [], []
+    empty_like = torch.empty_like
+
+    def spy(t, *a, **k):
+        made.append(empty_like(t, *a, **k))
+        return made[-1]
+
+    class Lib:
+        rimms_fft4_c64 = "fft4"
+
+    monkeypatch.setattr(torch, "empty_like", spy)
+    monkeypatch.setattr(F, "library", lambda: Lib)
+    monkeypatch.setattr(F, "launch",
+                        lambda fn, t, *a: calls.append((fn, a)) or 0)
+    x = torch.zeros(3, n, dtype=torch.complex64)
+    out = F.fft_kernel(x)
+    assert len(made) == 2 and out is made[0]
+    assert all(t.shape == x.shape and t.dtype == x.dtype for t in made)
+    (fn, (src, dst, work, addr)), = calls
+    assert fn == "fft4" and (src, dst, work) == (
+        x.data_ptr(), made[0].data_ptr(), made[1].data_ptr())
+    assert addr == F._launch4_args(-1, n, 3, False)[0]
+
+
+@pytest.mark.parametrize("n", NS4)
+def test_step_twiddles_are_rounded_roots_in_workspace_order(n):
+    """Entry k1 N2 + n2 multiplies workspace element k1 N2 + n2: the root
+    w_n^(n2 k1), computed in float64 and rounded to complex64 once."""
+    n1, n2 = F.split(n)
+    tw = F.step_twiddles(n)
+    assert tw.dtype == np.complex64 and tw.shape == (n,)
+    k1 = np.arange(n1)[:, None]
+    c = np.arange(n2)[None, :]
+    exact = np.exp(-2j * np.pi * ((k1 * c) % n) / n).ravel()
+    np.testing.assert_array_equal(tw.real, exact.real.astype(np.float32))
+    np.testing.assert_array_equal(tw.imag, exact.imag.astype(np.float32))
+    assert np.max(np.abs(tw - exact)) < 2 ** -24
+
+
+def _tile_addresses(n, first, load):
+    """Element addresses within a row, in thread order, of one four-step
+    block's copy of its TILE lines (csrc/fft.cu fft_four_step) -- for
+    every block of a row: ``[(block, [(thread, k, address)])]``."""
+    n1, n2 = F.split(n)
+    length, lines = (n1, n2) if first else (n2, n1)
+    threads = F.TILE * length // F.values(length)
+    blocks = []
+    for b in range(lines // F.TILE):
+        col0 = b * F.TILE
+        acc = []
+        for k in range(F.values(length)):
+            for tid in range(threads):
+                idx = tid + k * threads
+                if load and not first:  # a workspace row, contiguous
+                    c, e = divmod(idx, length)
+                    addr = (col0 + c) * length + e
+                else:  # a column of the row seen as length x lines
+                    c, e = idx % F.TILE, idx // F.TILE
+                    addr = e * lines + col0 + c
+                acc.append((tid, k, addr))
+        blocks.append(acc)
+    return blocks
+
+
+@pytest.mark.parametrize("n", [2 ** 14, 2 ** 15])
+@pytest.mark.parametrize("first", [True, False], ids=["pass1", "pass2"])
+@pytest.mark.parametrize("load", [True, False], ids=["load", "store"])
+def test_four_step_tiles_cover_a_row_once_in_whole_sectors(n, first, load):
+    """A pass's blocks load and store every element of a row exactly
+    once, and each warp's access touches only whole 32-byte sectors
+    (runs of at least 4 adjacent complex64 values)."""
+    blocks = _tile_addresses(n, first, load)
+    every = [a for blk in blocks for _, _, a in blk]
+    assert sorted(every) == list(range(n))
+    for blk in blocks:
+        by_warp = {}
+        for tid, k, addr in blk:
+            by_warp.setdefault((k, tid // 32), []).append(addr)
+        for addrs in by_warp.values():
+            sectors = {a // 4 for a in addrs}
+            assert len(sectors) * 4 == len(addrs)  # no sector half used
+
+
+@pytest.mark.parametrize("length", [128, 256, 512, 1024])
+def test_four_step_exchange_has_no_bank_conflicts(length):
+    """A four-step block runs TILE lines side by side through the same
+    register passes and swizzled exchange as TILE rows of fft_rows."""
+    assert _exchange_conflicts(length, F.TILE) == 1
+
+
+def _four_step_model(x, inverse):
+    """The four-step kernel's index arithmetic in numpy (each line's DFT
+    by np.fft): pass 1 loads column n2 of the row seen as N1 x N2
+    (conjugated for the inverse), multiplies element k1 of its DFT by the
+    step twiddle at k1 N2 + n2 and stores it there in the workspace;
+    pass 2 takes workspace row k1 and stores element k2 of its DFT at
+    k1 + N1 k2 (conjugated and scaled for the inverse)."""
+    rows, n = x.shape
+    n1, n2 = F.split(n)
+    tw = F.step_twiddles(n)
+    out = np.empty_like(x)
+    for r in range(rows):
+        row = np.conj(x[r]) if inverse else x[r]
+        work = np.empty(n, np.complex128)
+        for col in range(n2):
+            y = np.fft.fft(row[np.arange(n1) * n2 + col])
+            at = np.arange(n1) * n2 + col
+            work[at] = y * tw[at]
+        for k1 in range(n1):
+            z = np.fft.fft(work[k1 * n2:(k1 + 1) * n2])
+            if inverse:
+                z = np.conj(z) / n
+            out[r, k1 + n1 * np.arange(n2)] = z
+    return out
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+@pytest.mark.parametrize("n", [2 ** 14, 2 ** 15])
+def test_four_step_index_model_is_the_dft(n, inverse):
+    rng = np.random.default_rng(n)
+    x = (rng.normal(size=(2, n)) + 1j * rng.normal(size=(2, n))).astype(
+        np.complex64)
+    got = _four_step_model(x, inverse)
+    want = np.fft.ifft(x) if inverse else np.fft.fft(x)
+    scale = np.max(np.abs(want))
+    assert np.max(np.abs(got - want)) < 1e-6 * scale
+
+
+@pytest.mark.parametrize("n", [2 ** 14, 2 ** 15, 2 ** 20])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_launch4_args_carry_the_plan(n, inverse):
+    """The structure a four-step launch hands the kernel by address
+    (``Fft4Launch`` of csrc/fft.cu: three pointers, one int64, two int32)
+    holds the call's rows, N and direction, the pass tables of N1 and N2
+    and the step table, and is built once per call shape."""
+    import ctypes
+
+    addr, args, (table, step) = F._launch4_args(-1, n, 3, inverse)
+    assert ctypes.sizeof(args) == 40 and addr == ctypes.addressof(args)
+    n1, n2 = F.split(n)
+    ptrs = F.twiddle_tables("cpu")[1]
+    assert (args.twiddles1, args.twiddles2) == (
+        ptrs[n1.bit_length() - 1], ptrs[n2.bit_length() - 1])
+    assert table is F.twiddle_tables("cpu")[0]
+    assert step is F.step_table("cpu", n) and args.step == step.data_ptr()
+    assert torch.equal(step, torch.from_numpy(F.step_twiddles(n)))
+    assert (args.rows, args.n, args.inverse) == (3, n, int(inverse))
+    assert F._launch4_args(-1, n, 3, inverse)[1] is args

@@ -30,8 +30,15 @@ def fft_tol(n):
     # The tolerances of tests/test_kernels.py: f32 twiddles, and the two
     # sides sum in different orders (the Pallas kernel takes cos/sin of a
     # rounded f32 angle, the port sin/cos of the exact fraction 2k/m).
+    # They are sized for forward outputs (about sqrt(n)); an inverse
+    # (about 1/sqrt(n)) is compared times n (fft_scale).
     rtol = 3e-3 if n >= 2048 else 5e-4
     return rtol, rtol * n ** 0.5
+
+
+def fft_scale(n, forward):
+    # n for an inverse: a power of two, so the scaling is exact
+    return 1 if forward else n
 
 
 # ---------------------------------------------------------------- fft ----
@@ -44,7 +51,9 @@ def test_fft_plain_matches_pallas(n, rows, forward):
     got = tfft_ops.fft(torch.from_numpy(x), forward=forward)
     assert got.dtype == torch.complex64 and got.shape == (rows, n)
     rtol, atol = fft_tol(n)
-    np.testing.assert_allclose(got.numpy(), want, rtol=rtol, atol=atol)
+    s = fft_scale(n, forward)
+    np.testing.assert_allclose(got.numpy() * s, want * s, rtol=rtol,
+                               atol=atol)
 
 
 @pytest.mark.parametrize("n", [2, 64, 8192])
@@ -52,8 +61,27 @@ def test_fft_plain_matches_torch_fft(n):
     x = torch.from_numpy(crandn(np.random.default_rng(n), 2, n))
     rtol, atol = fft_tol(n)
     for fwd in (True, False):
-        torch.testing.assert_close(tfft_ops.fft(x, fwd), tfft_ref.fft(x, fwd),
+        s = fft_scale(n, fwd)
+        torch.testing.assert_close(tfft_ops.fft(x, fwd) * s,
+                                   tfft_ref.fft(x, fwd) * s,
                                    rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("forward", [True, False], ids=["fwd", "inv"])
+@pytest.mark.parametrize("rows", [1, 3], ids=["rows1", "ragged3"])
+@pytest.mark.parametrize("n", [16384, 32768])
+def test_fft_large_n_matches_pallas(n, rows, forward):
+    """N past one launch on the card (the four-step passes there): the
+    CPU path against the JAX package's Pallas kernel in interpret mode,
+    as tests/test_kernels.py runs it, at its tolerance."""
+    x = crandn(np.random.default_rng([n, rows, forward]), rows, n)
+    want = np.asarray(jfft_ops.fft(x, forward=forward))
+    got = tfft_ops.fft(torch.from_numpy(x), forward=forward)
+    assert got.dtype == torch.complex64 and got.shape == (rows, n)
+    rtol, atol = fft_tol(n)
+    s = fft_scale(n, forward)
+    np.testing.assert_allclose(got.numpy() * s, want * s, rtol=rtol,
+                               atol=atol)
 
 
 def test_fft_keeps_leading_shape_and_leaves_input():
@@ -77,7 +105,7 @@ def test_fft_block_rows_bit_identical():
     (torch.zeros(2, 64, dtype=torch.complex128), TypeError),
     (torch.zeros(2, 64, dtype=torch.float32), TypeError),
     (torch.zeros(2, 48, dtype=torch.complex64), ValueError),
-    (torch.zeros(2, 16384, dtype=torch.complex64), ValueError),
+    (torch.zeros(2, 1 << 21, dtype=torch.complex64), ValueError),
     (torch.zeros(2, 1, dtype=torch.complex64), ValueError),
     (torch.zeros(64, 2, dtype=torch.complex64).t(), ValueError),
     (torch.zeros(2, 64, dtype=torch.complex64, device="meta"), ValueError),
