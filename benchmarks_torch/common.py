@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
+import platform
 import time
 from pathlib import Path
 from typing import Callable, Dict, List
@@ -69,6 +71,29 @@ def tracing(trace_dir, bench_name: str, *, capacity: int = 1 << 18,
             msg = "\n".join(f"  - {v}" for v in violations)
             raise AssertionError(
                 f"trace_lint failed for {path}:\n{msg}")
+
+
+def host_cpu() -> str:
+    """The host CPU's model, architecture and logical CPU count: host-timed
+    numbers belong to it.  The model is ``/proc/cpuinfo``'s model name,
+    or its vendor, family and model numbers where the name reads
+    "unknown" (as on some virtualised hosts)."""
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if not line.strip():
+                    break  # the first processor's block is enough
+                key, _, value = line.partition(":")
+                info[key.strip()] = value.strip()
+    except OSError:
+        pass
+    model = info.get("model name", "unknown")
+    if model == "unknown" and "vendor_id" in info:
+        model = (f"{info['vendor_id']} family {info.get('cpu family', '?')} "
+                 f"model {info.get('model', '?')}")
+    return (f"{model} ({platform.machine()}, {os.cpu_count()} logical "
+            f"CPUs)")
 
 
 def emit(name: str, us_per_call: float, derived: str = "") -> None:

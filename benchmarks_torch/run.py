@@ -9,8 +9,8 @@ depth) for the json-capable benches, comparable with
 benchmarks/baselines/nightly``.  ``--device`` is where accelerator
 spaces live (default CUDA; ``cpu`` runs on CPU tensors).
 
-``overhead``, ``roofline`` and ``multitenant`` are not ported yet: naming
-one in ``--only`` raises, and a run of everything skips them.
+``roofline`` is not ported yet: naming it in ``--only`` raises, and a
+run of everything skips it.
 
 Run:  PYTHONPATH=src python -m benchmarks_torch.run [--only 2fft,graph] [--device cpu]
 """
@@ -20,7 +20,7 @@ from pathlib import Path
 
 #: benches of ``benchmarks/run.py`` that the port lacks, and the ROADMAP
 #: item that ports each
-NOT_PORTED = {"overhead": "A6", "roofline": "A11", "multitenant": "A6"}
+NOT_PORTED = {"roofline": "A11"}
 
 
 def _not_ported(name: str):
@@ -33,9 +33,9 @@ def _not_ported(name: str):
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", default=None,
-                    help="comma list: 2fft,2fzf,alloc,3zip,apps,marking,"
-                         "graph,pressure,topology,stream,serve,calibrate "
-                         "(overhead, roofline and multitenant are not "
+                    help="comma list: 2fft,2fzf,alloc,overhead,3zip,apps,"
+                         "marking,graph,pressure,topology,stream,"
+                         "multitenant,serve,calibrate (roofline is not "
                          "ported)")
     ap.add_argument("--json-dir", default=None, metavar="DIR",
                     help="write BENCH_*.json records for json-capable "
@@ -53,8 +53,8 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     from . import (bench_2fft, bench_2fzf, bench_3zip, bench_alloc,
                    bench_apps, bench_calibrate, bench_graph, bench_marking,
-                   bench_pressure, bench_serve, bench_stream,
-                   bench_topology)
+                   bench_multitenant, bench_overhead, bench_pressure,
+                   bench_serve, bench_stream, bench_topology)
 
     dev = args.device
 
@@ -65,7 +65,8 @@ def main(argv=None) -> None:
 
     benches = {
         "alloc": lambda jp: bench_alloc.run(),
-        "overhead": _not_ported("overhead"),
+        "overhead": lambda jp: bench_overhead.run(n_calls=200_000,
+                                                  device=dev),
         "2fft": lambda jp: bench_2fft.run(device=dev),
         "2fzf": lambda jp: bench_2fzf.run(device=dev),
         "3zip": lambda jp: bench_3zip.run(device=dev),
@@ -82,7 +83,11 @@ def main(argv=None) -> None:
         "stream": lambda jp: bench_stream.run_stream(
             clients=bench_stream.CLIENTS, chains=bench_stream.CHAINS,
             n=bench_stream.N, json_path=jp, smoke=False, device=dev),
-        "multitenant": _not_ported("multitenant"),
+        "multitenant": lambda jp: bench_multitenant.run_multitenant(
+            n=bench_multitenant.N,
+            light_chains=bench_multitenant.LIGHT_CHAINS,
+            heavy_chains=bench_multitenant.HEAVY_CHAINS,
+            json_path=jp, smoke=False, device=dev),
         "serve": lambda jp: bench_serve.run_serve(
             n_users=bench_serve.N_USERS,
             reqs_per_user=bench_serve.REQS_PER_USER,
@@ -95,6 +100,7 @@ def main(argv=None) -> None:
         "pressure": "BENCH_pressure.json",
         "topology": "BENCH_topology.json",
         "stream": "BENCH_stream.json",
+        "multitenant": "BENCH_multitenant.json",
         "serve": "BENCH_serve.json",
         "calibrate": "BENCH_calibrate.json",
     }

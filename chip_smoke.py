@@ -10,8 +10,9 @@ Phases, each of which raises (exit code 1) on a failed check:
    card: FFT at every power of two from 2 to 2^20 (1, 3, 128 and 1024
    rows up to 8192, one launch; 1, 3 and 128 up to 65536 and 1 and 3
    above, the four-step passes), forward and inverse (and against
-   ``torch.fft``), ZIP across the
-   radar path's shapes, both at fragments' storage offsets (odd ones
+   ``torch.fft``), ZIP at every length the radar and multitenant paths
+   give it (32 to 8192, 131072) and odd shapes, both at fragments'
+   storage offsets (odd ones
    too, and ZIP operands at different 16-byte phases), inputs unwritten
    and ``block_rows`` bit-identical; flash attention, RG-LRU
    and mLSTM at the reference's test shapes and tolerances
@@ -69,7 +70,20 @@ Phases, each of which raises (exit code 1) on a failed check:
    benches (Figs 5-8 and 10, Tables 1-3) at their default sizes with no
    MISMATCH row; both ``examples_torch`` scripts as subprocesses; every
    FFT/ZIP task on a device PE launched its kernel, FFT rows past 8192
-   among them.  Records go to ``build/paper_suite/``.
+   among them.  Records go to ``build/paper_suite/``; the gated smokes
+   are traced into ``build/paper_suite/traces/``;
+11. runtime — the observability and QoS surface on ``cuda:0``:
+   ``bench_multitenant`` (three light closed-loop clients and one heavy
+   open-loop client on two accelerators that share the card) at smoke and
+   nightly depth, traced, its gates exactly equal to
+   ``benchmarks/baselines/`` and ``.../nightly/``, light chains bit-identical
+   between the mix and solo runs, no light SLO violated and the heavy
+   tenant's burn rate above 1, every task completed, and one FFT or ZIP
+   launch per device task; ``bench_overhead`` at 200 000 calls with its
+   smoke asserts (host timings, logged beside the host CPU's model); the
+   profile CLI (``python -m repro_torch.profile``) over every trace of
+   this phase and phase 10 (exit 0, four sections) and over a malformed
+   and a missing one (exit 1).  Records go to ``build/runtime/``.
 
 Phases 3 and 4 also hold the paged-attention kernel against its plain
 version (the reference's sweep, rows of length 0, repeated pages, and
@@ -283,7 +297,10 @@ def phase_kernels(dev):
     if not torch.equal(base, before):
         raise AssertionError("fft wrote into its input")
 
-    for shape in ((1,), (2,), (64,), (3, 300), (2, 5, 129), (131072,)):
+    # the radar path's 2FZF lengths (32..2048), the multitenant path's
+    # (4096, 8192) and 3ZIP's largest (131072), beside odd shapes
+    for shape in ((1,), (2,), (3, 300), (2, 5, 129),
+                  *((2 ** k,) for k in range(5, 14)), (131072,)):
         a, b = crandn(*shape), crandn(*shape)
         got = zip_ops.zip_mul(a, b)
         e = close(got, Z.zip_plain(a, b), 1e-5, 1e-5, f"zip {shape}")
@@ -1765,7 +1782,8 @@ class RuntimeTaskCounter:
         return False
 
 
-def _gates_equal(paths, baselines: Path, what: str, override=None):
+def _gates_equal(paths, baselines: Path, what: str, override=None,
+                 tag: str = "[paper]"):
     """The port's ``check_regression`` over ``paths`` against
     ``baselines`` (exit 0 required), then every gated metric exactly equal
     to the baseline's (or to ``override``'s value), both sides logged."""
@@ -1781,7 +1799,7 @@ def _gates_equal(paths, baselines: Path, what: str, override=None):
         base = json.loads((baselines / path.name).read_text())["gate"]
         want = {**base, **(override or {}).get(name, {})}
         for k in sorted(base):
-            log(f"[paper] {what} {name}.{k}: baseline {base[k]!r}"
+            log(f"{tag} {what} {name}.{k}: baseline {base[k]!r}"
                 + (f", JAX package {want[k]!r}" if want[k] != base[k]
                    else "") + f", port {got.get(k)!r}")
         if got != want:
@@ -1795,7 +1813,9 @@ def phase_paper_suite(out_dir: Path):
     their gates against ``benchmarks/baselines/`` and ``.../nightly/``,
     the paper-figure benches at their default sizes, and both examples
     as subprocesses; every FFT/ZIP task on a device PE must have launched
-    its kernel, with rows past 8192 among them."""
+    its kernel, with rows past 8192 among them.  Each gated smoke is
+    traced (``benchmarks_torch.common.tracing``, linted) into
+    ``out_dir/traces/TRACE_<bench>.json`` for phase 11's profile CLI."""
     from benchmarks_torch import (bench_2fft, bench_2fzf, bench_3zip,
                                   bench_alloc, bench_apps, bench_graph,
                                   bench_marking, bench_pressure,
@@ -1803,22 +1823,25 @@ def phase_paper_suite(out_dir: Path):
     from benchmarks_torch import run as bench_run
 
     smoke_dir, full_dir = out_dir / "smoke", out_dir / "nightly"
+    trace_dir = out_dir / "traces"
     smoke_dir.mkdir(parents=True, exist_ok=True)
     full_dir.mkdir(parents=True, exist_ok=True)
+    smokes = {
+        "graph": lambda jp: bench_graph.smoke(jp),
+        "pressure": lambda jp: bench_pressure.run_pressure(
+            ways=4, n=1 << 12, smoke=True, json_path=jp),
+        "stream": lambda jp: bench_stream.run_stream(
+            clients=4, chains=6, n=1 << 13, smoke=True, json_path=jp),
+        "topology": lambda jp: bench_topology.run_topology(
+            ways=4, n=1 << 13, depth=2, smoke=True, json_path=jp),
+    }
     times = {}
     reset_counts()
     with RuntimeTaskCounter() as counter:
         t0 = time.perf_counter()
-        bench_graph.smoke(str(smoke_dir / "BENCH_graph.json"))
-        bench_pressure.run_pressure(ways=4, n=1 << 12, smoke=True,
-                                    json_path=str(smoke_dir
-                                                  / "BENCH_pressure.json"))
-        bench_stream.run_stream(clients=4, chains=6, n=1 << 13, smoke=True,
-                                json_path=str(smoke_dir
-                                              / "BENCH_stream.json"))
-        bench_topology.run_topology(ways=4, n=1 << 13, depth=2, smoke=True,
-                                    json_path=str(smoke_dir
-                                                  / "BENCH_topology.json"))
+        for bench, smoke in smokes.items():
+            with common.tracing(str(trace_dir), bench):
+                smoke(str(smoke_dir / f"BENCH_{bench}.json"))
         times["smokes_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         bench_run.main(["--only", ",".join(GATED), "--json-dir",
@@ -1883,7 +1906,152 @@ def phase_paper_suite(out_dir: Path):
                              "ZIP on a device PE")
     return {"launches": launches, "device_tasks": {
         "fft": counter.fft, "zip": counter.zip,
-        "max_fft_n": counter.max_fft_n}, "seconds": times}
+        "max_fft_n": counter.max_fft_n}, "seconds": times,
+        "traces": [trace_dir / f"TRACE_{b}.json" for b in smokes]}
+
+
+# ----------------------------------------------------------- 11. runtime
+#: multitenant depths: (n, light chains, heavy chains) and the committed
+#: record its gate must equal
+MULTITENANT_DEPTHS = (("smoke", (1 << 12, 4, 24), BASELINES),
+                      ("nightly", (1 << 13, 8, 64), BASELINES / "nightly"))
+#: the four sections the profile CLI prints for every trace
+PROFILE_HEADINGS = ("### Top ops by wall time", "### Top ops by modeled time",
+                    "### Critical path", "### Wall/modeled divergence")
+
+
+def _multitenant(depth, dims, baselines, out_dir: Path):
+    """One traced ``run_multitenant`` on ``cuda:0`` (device ``None``) with
+    the bench's own smoke asserts (light chains bit-identical between the
+    mix and solo runs, no light SLO violated, the heavy tenant's burn rate
+    above 1, the mix's tasks all completed), its gate exactly equal to
+    ``baselines``, every case's tasks completed, and every fft/ifft/zip
+    task launched as the port's kernel."""
+    from benchmarks_torch import bench_multitenant as mt, common
+
+    n, lc, hc = dims
+    rec_dir = out_dir / depth
+    rec_dir.mkdir(parents=True, exist_ok=True)
+    path = rec_dir / "BENCH_multitenant.json"
+    reset_counts()
+    with RuntimeTaskCounter() as counter:
+        t0 = time.perf_counter()
+        with common.tracing(str(out_dir / "traces"), f"multitenant_{depth}",
+                            metrics_dir=str(out_dir / "metrics")):
+            rec = mt.run_multitenant(n=n, light_chains=lc, heavy_chains=hc,
+                                     json_path=str(path), smoke=True)
+        seconds = time.perf_counter() - t0
+    launches = read_counts()
+    _gates_equal([path], baselines, depth, tag="[runtime]")
+    for case in ("solo", "mix", "unbounded"):
+        if rec[case]["n_completed"] != rec[case]["n_tasks"]:
+            raise AssertionError(f"multitenant {depth} {case}: "
+                                 f"{rec[case]['n_completed']} of "
+                                 f"{rec[case]['n_tasks']} tasks completed")
+    chains = 3 * mt.N_LIGHTS * lc + 2 * hc  # solo, mix and unbounded
+    want = {"fft": 3 * chains, "zip": chains}
+    got = {"fft": launches["fft"], "zip": launches["zip"]}
+    log(f"[runtime] multitenant {depth} (n {n}, {lc}/{hc} chains) in "
+        f"{seconds:.1f}s: wall s solo {rec['solo']['wall_s']:.4f}, mix "
+        f"{rec['mix']['wall_s']:.4f}, unbounded "
+        f"{rec['unbounded']['wall_s']:.4f}; light p95 over solo "
+        f"{rec['light_p95_over_solo']!r}, heavy burn rate "
+        f"{rec['slo']['heavy']['burn_rate']!r}; device tasks fft/ifft "
+        f"{counter.fft}, zip {counter.zip}; kernel launches {got}")
+    if counter.other or (counter.fft, counter.zip) != (want["fft"],
+                                                       want["zip"]):
+        raise AssertionError(f"multitenant {depth}: device tasks fft "
+                             f"{counter.fft} zip {counter.zip} (other "
+                             f"{set(counter.other)}), expected {want}")
+    if got != want:
+        raise AssertionError(f"multitenant {depth}: kernel launches {got} "
+                             f"!= device tasks {want}")
+    return {"launches": got, "seconds": seconds,
+            "wall_s": {c: rec[c]["wall_s"]
+                       for c in ("solo", "mix", "unbounded")}}
+
+
+def _profile_cli(paths, out_dir: Path):
+    """``python -m repro_torch.profile`` on every trace in ``paths``: exit
+    0 and the four section headings; then exit 1 on a malformed trace and
+    on a missing one."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+    def cli(path):
+        return subprocess.run(
+            [sys.executable, "-m", "repro_torch.profile", str(path)],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+
+    for path in paths:
+        proc = cli(path)
+        if proc.returncode != 0:
+            raise AssertionError(f"profile {path} exited {proc.returncode}:"
+                                 f"\n{proc.stderr[-3000:]}")
+        missing = [h for h in PROFILE_HEADINGS if h not in proc.stdout]
+        if missing:
+            raise AssertionError(f"profile {path}: no {missing}")
+        if "multitenant" in path.name and not (
+                "| fft |" in proc.stdout and " tasks, " in proc.stdout
+                and "| compute | " in proc.stdout):
+            raise AssertionError(f"profile {path}: no fft rows, critical "
+                                 f"path or compute divergence cells")
+        path_line = next((ln for ln in proc.stdout.splitlines()
+                          if " tasks, " in ln), "no critical path")
+        log(f"[runtime] profile {path.name}: exit 0, "
+            f"{len(proc.stdout.splitlines())} lines; {path_line}")
+    bad = out_dir / "TRACE_malformed.json"
+    bad.write_text('{"traceEvents": [')
+    for path in (bad, out_dir / "TRACE_missing.json"):
+        proc = cli(path)
+        if proc.returncode != 1:
+            raise AssertionError(f"profile {path.name} exited "
+                                 f"{proc.returncode}, not 1")
+        log(f"[runtime] profile {path.name}: exit 1 "
+            f"({proc.stderr.strip().splitlines()[-1]})")
+
+
+def phase_runtime(out_dir: Path, suite_traces):
+    """The runtime's observability and QoS surface on ``cuda:0``:
+    ``bench_multitenant`` at smoke and nightly depth (gates equal to
+    ``benchmarks/baselines/`` and ``.../nightly/``, light chains bit-identical
+    between the mix and solo runs, no light SLO violated and the heavy
+    tenant's burn rate above 1, every task completed, one kernel launch
+    per device task), ``bench_overhead`` at 200 000 calls with its smoke
+    asserts (host timings), and the profile CLI over every trace this
+    phase and phase 10 wrote.  Records go to ``out_dir``."""
+    from benchmarks_torch import bench_overhead, common
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    runs = {depth: _multitenant(depth, dims, baselines, out_dir)
+            for depth, dims, baselines in MULTITENANT_DEPTHS}
+
+    t0 = time.perf_counter()
+    try:
+        ov = bench_overhead.run(n_calls=200_000, smoke=True)
+    except AssertionError as e:
+        raise AssertionError(
+            f"[runtime] overhead gate: {e}. A crossing in only some "
+            f"repeats, with no change to the flag-hit path, is the host "
+            f"noise recorded as ROADMAP C.13; a regression of the hot "
+            f"path moves every repeat") from e
+    overhead = {
+        "host_cpu": common.host_cpu(),
+        "ns_per_call": {"baseline": ov["flag"]["baseline"],
+                        "traced": ov["flag"]["traced"],
+                        "paused": ov["flag"]["paused"],
+                        "sampler_off": ov["sampled"]["off"],
+                        "sampler_on": ov["sampled"]["on"]},
+        "ns_per_event": ov["instant"],
+        "ratios": {k: ov[f"ratio_{k}"]
+                   for k in ("traced", "paused", "sampled")},
+        "seconds": time.perf_counter() - t0}
+    log("[runtime] overhead " + json.dumps(overhead))
+
+    traces = sorted((out_dir / "traces").glob("TRACE_*.json"))
+    _profile_cli(traces + list(suite_traces), out_dir)
+    return {"multitenant": runs, "overhead": overhead,
+            "launches": {k: sum(r["launches"][k] for r in runs.values())
+                         for k in ("fft", "zip")}}
 
 
 # ------------------------------------------------------------------ main
@@ -1972,6 +2140,11 @@ def main() -> int:
     suite = phase_paper_suite(ROOT / "build" / "paper_suite")
     log(f"[paper] phase in {time.perf_counter() - t0:.1f}s")
 
+    t0 = time.perf_counter()
+    runtime = phase_runtime(ROOT / "build" / "runtime", suite["traces"])
+    log(f"[runtime] phase in {time.perf_counter() - t0:.1f}s; multitenant "
+        f"kernel launches {runtime['launches']}")
+
     def pick(kernel, key, value):
         return next(r for r in timing
                     if r["kernel"] == kernel and r.get(key) == value)
@@ -2032,7 +2205,11 @@ def main() -> int:
                     "bound_two_pass_twiddles_ms")}
                 for r in timing if r["kernel"] == "fft"]}
                if kname == "fft" else {}),
-            **({"paper_suite_launches": suite["launches"][kname]}
+            **({"paper_suite_launches": suite["launches"][kname],
+                "multitenant_launches": runtime["launches"][kname],
+                "multitenant_launches_by_depth": {
+                    d: r["launches"][kname]
+                    for d, r in runtime["multitenant"].items()}}
                if kname in ("fft", "zip") else {}),
             # FFT and ZIP: what a runtime task pays (one call then a
             # synchronise), the host's share, the library's device time

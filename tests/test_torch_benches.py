@@ -22,9 +22,10 @@ import torch
 
 from benchmarks_torch import (bench_2fft, bench_2fzf, bench_3zip,
                               bench_alloc, bench_apps, bench_calibrate,
-                              bench_graph, bench_marking, bench_pressure,
-                              bench_serve, bench_stream, bench_topology,
-                              check_regression, common, run)
+                              bench_graph, bench_marking, bench_multitenant,
+                              bench_overhead, bench_pressure, bench_serve,
+                              bench_stream, bench_topology, check_regression,
+                              common, run)
 
 torch.set_num_threads(1)
 
@@ -128,7 +129,9 @@ def test_run_dispatches_the_ported_benches(monkeypatch, tmp_path, capsys):
                     (bench_3zip, "run"), (bench_alloc, "run"),
                     (bench_apps, "run"), (bench_marking, "run"),
                     (bench_serve, "run_serve"),
-                    (bench_calibrate, "run_calibrate")):
+                    (bench_calibrate, "run_calibrate"),
+                    (bench_overhead, "run"),
+                    (bench_multitenant, "run_multitenant")):
         monkeypatch.setattr(mod, fn, rec(f"{mod.__name__}.{fn}"))
     run.main(["--only", "graph,pressure,stream,topology,2fft",
               "--json-dir", str(tmp_path), "--device", "cpu"])
@@ -150,10 +153,12 @@ def test_run_dispatches_the_ported_benches(monkeypatch, tmp_path, capsys):
         "bench_3zip.run", "bench_apps.run", "bench_marking.run",
         "bench_graph.run", "bench_pressure.run_pressure",
         "bench_topology.run_topology", "bench_stream.run_stream",
-        "bench_serve.run_serve", "bench_calibrate.run_calibrate"])
+        "bench_serve.run_serve", "bench_calibrate.run_calibrate",
+        "bench_overhead.run", "bench_multitenant.run_multitenant"])
     out = capsys.readouterr().out
-    for name in ("overhead", "roofline", "multitenant"):
-        assert f"# --- {name}: not ported" in out
+    assert "# --- roofline: not ported" in out
+    for name in ("overhead", "multitenant"):
+        assert f"# --- {name} ---" in out
 
 
 @pytest.mark.parametrize("name", sorted(run.NOT_PORTED))
