@@ -37,6 +37,10 @@
 //     and gate vectors) stream in by cp.async one step ahead, into rings
 //     of shared memory, 16 bytes a copy when rows are 16-byte aligned.
 //     Only C's columns are split, so no block needs another's result.
+//     When asked for the final state, the block applies the last chunk's
+//     last slice of the update after the loop (h never needs it) and
+//     writes its 16 columns of C, in the reference's orientation
+//     C[a, e] = sum w k_a v_e, and column tile 0 writes n.
 //     What holds it back on the H100 (PERF.md): each block copies the
 //     head's whole q and k through shared memory, and issuing those
 //     copies, not the products, sets the time of a step.
@@ -353,6 +357,7 @@ __global__ void __launch_bounds__(kThreads)
 mlstm_inter_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, const float* __restrict__ ni,
                    const float* __restrict__ vec, float* __restrict__ out,
+                   float* __restrict__ c_out, float* __restrict__ n_out,
                    int S, int H, int M, int c, float inv_sqrt_m) {
   extern __shared__ float smem[];
   const int cp = (c + 15) & ~15;
@@ -443,6 +448,56 @@ mlstm_inter_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   };
 
+  // warps 0-3: step sp's slice of the C and n updates
+  auto update = [&](int sp) {
+    const int jp = sp / nz, zp = sp % nz;
+    const float* ks = kst + (sp % 3) * cp * kK;
+    const float* vs = vst + (jp & 1) * cp * kV;
+    const float* vd = vecs + (jp & 1) * kVecPad;
+    const float* w = vd + kMaxChunk;
+    const float f = vd[3 * kMaxChunk];
+    const int rt = warp >> 1, nt = warp & 1, i0 = 16 * rt;
+    // k^T (w v) over the chunk in 8-row steps, even and odd steps in
+    // separate sums
+    float um[2][4] = {}, uc[2][4] = {};
+    for (int s0 = 0; s0 < cp; s0 += 16) {
+#pragma unroll
+      for (int par = 0; par < 2; ++par) {
+        const int s1 = s0 + 8 * par;
+        const float* k0 = ks + (s1 + 2 * t4) * kK + i0 + g;
+        const float x[4] = {k0[0], k0[8], k0[kK], k0[kK + 8]};
+        const Split<4> a(x);
+        const float* vr = vs + (s1 + 2 * t4) * kV + 8 * nt + g;
+        mma3(um[par], uc[par], a, vr[0], vr[kV]);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = zp * kSlice + i0 + g + (e >> 1) * 8;
+      const int col = 8 * nt + 2 * t4 + (e & 1);
+      const float upd = __fadd_rn(__fadd_rn(um[0][e], um[1][e]),
+                                  __fadd_rn(uc[0][e], uc[1][e]));
+      float* cell = ct + col * ldc + row;
+      *cell = __fadd_rn(__fmul_rn(f, *cell), upd);
+    }
+    // n[slice]: eight columns a warp; lane p of a column takes rows
+    // 2p, 2p + 1 of every 8
+    const int col = 8 * warp + (lane & 7), p = lane >> 3;
+    float ps[2] = {0.f, 0.f};
+    for (int s0 = 2 * p; s0 < cp; s0 += 8) {
+      ps[0] = __fadd_rn(ps[0], __fmul_rn(ks[s0 * kK + col], w[s0]));
+      ps[1] = __fadd_rn(ps[1], __fmul_rn(ks[(s0 + 1) * kK + col],
+                                         w[s0 + 1]));
+    }
+    float sum = __fadd_rn(ps[0], ps[1]);
+    sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, 8));
+    sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, 16));
+    if (p == 0) {
+      float* cell = ns + zp * kSlice + col;
+      *cell = __fadd_rn(__fmul_rn(f, *cell), sum);
+    }
+  };
+
   for (int st = 0; st < nsteps; ++st) {
     const int j = st / nz, z = st % nz;
     cp_async_wait_all();
@@ -511,55 +566,7 @@ mlstm_inter_kernel(const float* __restrict__ q, const float* __restrict__ k,
         }
       }
     } else {
-      if (st > 0 && (st - 1) % nz < nm) {
-        // warps 0-3: the previous step's slice of the C and n updates
-        const int sp = st - 1, jp = sp / nz, zp = sp % nz;
-        const float* ks = kst + (sp % 3) * cp * kK;
-        const float* vs = vst + (jp & 1) * cp * kV;
-        const float* vd = vecs + (jp & 1) * kVecPad;
-        const float* w = vd + kMaxChunk;
-        const float f = vd[3 * kMaxChunk];
-        const int rt = warp >> 1, nt = warp & 1, i0 = 16 * rt;
-        // k^T (w v) over the chunk in 8-row steps, even and odd steps in
-        // separate sums
-        float um[2][4] = {}, uc[2][4] = {};
-        for (int s0 = 0; s0 < cp; s0 += 16) {
-#pragma unroll
-          for (int par = 0; par < 2; ++par) {
-            const int s1 = s0 + 8 * par;
-            const float* k0 = ks + (s1 + 2 * t4) * kK + i0 + g;
-            const float x[4] = {k0[0], k0[8], k0[kK], k0[kK + 8]};
-            const Split<4> a(x);
-            const float* vr = vs + (s1 + 2 * t4) * kV + 8 * nt + g;
-            mma3(um[par], uc[par], a, vr[0], vr[kV]);
-          }
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = zp * kSlice + i0 + g + (e >> 1) * 8;
-          const int col = 8 * nt + 2 * t4 + (e & 1);
-          const float upd = __fadd_rn(__fadd_rn(um[0][e], um[1][e]),
-                                      __fadd_rn(uc[0][e], uc[1][e]));
-          float* cell = ct + col * ldc + row;
-          *cell = __fadd_rn(__fmul_rn(f, *cell), upd);
-        }
-        // n[slice]: eight columns a warp; lane p of a column takes rows
-        // 2p, 2p + 1 of every 8
-        const int col = 8 * warp + (lane & 7), p = lane >> 3;
-        float ps[2] = {0.f, 0.f};
-        for (int s0 = 2 * p; s0 < cp; s0 += 8) {
-          ps[0] = __fadd_rn(ps[0], __fmul_rn(ks[s0 * kK + col], w[s0]));
-          ps[1] = __fadd_rn(ps[1], __fmul_rn(ks[(s0 + 1) * kK + col],
-                                             w[s0 + 1]));
-        }
-        float sum = __fadd_rn(ps[0], ps[1]);
-        sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, 8));
-        sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, 16));
-        if (p == 0) {
-          float* cell = ns + zp * kSlice + col;
-          *cell = __fadd_rn(__fmul_rn(f, *cell), sum);
-        }
-      }
+      if (st > 0 && (st - 1) % nz < nm) update(st - 1);
       if (z == 0) {
         // this chunk's v columns, arrived with this step: scaled by w once
         float* vs = vst + (j & 1) * cp * kV;
@@ -573,22 +580,39 @@ mlstm_inter_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   __syncthreads();
   if (warp >= 4) emit(nc - 1);
+  if (c_out == nullptr) return;
+  // the final state: the last step's slice of the update (if it had
+  // one), then C's 16 columns and (column tile 0) n
+  if (warp < 4 && (nsteps - 1) % nz < nm) update(nsteps - 1);
+  __syncthreads();
+  float* cb = c_out + (long long)bh * M * M;
+  for (int e = tid; e < kCols * M; e += kThreads) {
+    const int a = e / kCols, col = e % kCols;
+    if (e0 + col < M) cb[(long long)a * M + e0 + col] = ct[col * ldc + a];
+  }
+  if (blockIdx.x == 0)
+    for (int i = tid; i < M; i += kThreads)
+      n_out[(long long)bh * M + i] = ns[i];
 }
 
 }  // namespace
 
 // q, k, v, out: (B, S, H, M) float32, q unscaled; ig, lf: (B, S, H) float32;
-// all contiguous, out distinct.  work: a float32 workspace of
+// all contiguous, out distinct.  c_out (B, H, M, M) and n_out (B, H, M)
+// float32: the state after the last token, C[a, e] = sum w k_a v_e; both
+// null (not written) or neither.  work: a float32 workspace of
 // B S H M + B H (S / chunk) (3 chunk + 1) elements (A V, then the gate
 // vectors).  1 <= chunk <= 128 divides S; 1 <= M <= 1024.  Launches both
 // passes on `stream`; returns cudaGetLastError() (0 on success), or
 // cudaErrorInvalidValue for shapes it does not take.
 extern "C" int rimms_mlstm_f32(const void* q, const void* k, const void* v,
                                const void* ig, const void* lf, void* out,
-                               void* work, int B, int S, int H, int M,
-                               int chunk, float inv_sqrt_m, void* stream) {
+                               void* c_out, void* n_out, void* work, int B,
+                               int S, int H, int M, int chunk,
+                               float inv_sqrt_m, void* stream) {
   if (B < 0 || S < 0 || H < 1 || M < 1 || M > 1024 || chunk < 1 ||
-      chunk > kMaxChunk || S % chunk != 0 || (long long)B * H > 65535)
+      chunk > kMaxChunk || S % chunk != 0 || (long long)B * H > 65535 ||
+      (c_out == nullptr) != (n_out == nullptr))
     return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return 0;
   const int cp = (chunk + 15) & ~15;
@@ -622,7 +646,8 @@ extern "C" int rimms_mlstm_f32(const void* q, const void* k, const void* v,
     if (err != cudaSuccess) return (int)err;
     inter_kernel<<<dim3((M + kCols - 1) / kCols, B * H), kThreads, inter,
                    st>>>((const float*)q, (const float*)k, (const float*)v,
-                         ni, vec, (float*)out, S, H, M, chunk, inv_sqrt_m);
+                         ni, vec, (float*)out, (float*)c_out,
+                         (float*)n_out, S, H, M, chunk, inv_sqrt_m);
     return (int)cudaGetLastError();
   };
   return vec4 ? run(mlstm_intra_kernel<4>, mlstm_inter_kernel<4>)

@@ -118,7 +118,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.rimms_zip_c64.argtypes = [p, p, p, i64, i32, p]
     lib.rimms_rg_lru_f32.argtypes = [p] * 6 + [i32] * 5 + [p]
     lib.rimms_flash_attention.argtypes = [p, p, p, p] + [i32] * 9 + [f32, p]
-    lib.rimms_mlstm_f32.argtypes = [p] * 7 + [i32] * 5 + [f32, p]
+    lib.rimms_mlstm_f32.argtypes = [p] * 9 + [i32] * 5 + [f32, p]
     lib.rimms_paged_attention.argtypes = [p] * 8 + [i32] * 10 + [f32, p]
     for fn in (lib.rimms_fft_c64, lib.rimms_fft4_c64, lib.rimms_zip_c64,
                lib.rimms_rg_lru_f32,

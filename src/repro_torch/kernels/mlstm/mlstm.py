@@ -2,7 +2,9 @@
 
 Two versions of one function over q, k, v (B, S, H, m) and the gates
 i_gate, log_f (B, S, H), all float32, q unscaled (both divide it by
-√m):
+√m), giving h (B, S, H, m) and, when asked, the state after the last
+token: C (B, H, m, m) with C[a, e] = Σ_s w_s k_s[a] v_s[e], and n
+(B, H, m):
 
 * :func:`mlstm_kernel` launches the hand-written CUDA kernel
   (``csrc/mlstm.cu``) in two passes: one block per (head, chunk)
@@ -72,31 +74,43 @@ def launch_plan(batch: int, s: int, h: int, m: int, chunk: int) -> dict:
 
 def mlstm_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  i_gate: torch.Tensor, log_f: torch.Tensor, *,
-                 chunk: int = CHUNK) -> torch.Tensor:
+                 chunk: int = CHUNK, return_state: bool = False):
     """Contiguous float32 tensors on one CUDA device, ``chunk`` dividing
-    S → h (B, S, H, m) in a fresh tensor.  The caller has validated
-    them; this launches both passes on the current stream (one call, one
-    count) and does not wait."""
+    S → h (B, S, H, m) in a fresh tensor, or with ``return_state`` (h,
+    C, n), the second pass writing the state it holds (h is the same
+    bits either way).  The caller has validated them; this launches both
+    passes on the current stream (one call, one count) and does not
+    wait."""
     global launches
     batch, s, h, m = q.shape
     out = torch.empty_like(q)
-    if batch == 0 or s == 0:
-        return out
-    work = torch.empty(launch_plan(batch, s, h, m, chunk)["work"],
-                       dtype=torch.float32, device=q.device)
-    check(launch(library().rimms_mlstm_f32, q, q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), i_gate.data_ptr(), log_f.data_ptr(),
-                 out.data_ptr(), work.data_ptr(), batch, s, h, m,
-                 int(chunk), ctypes.c_float(1.0 / math.sqrt(m))), "mlstm")
-    with _count_lock:
-        launches += 1
-    return out
+    c_state = n_state = None
+    if return_state:
+        # zeros: the state of an empty sequence, which no launch writes
+        make = torch.zeros if s == 0 else torch.empty
+        c_state = make((batch, h, m, m), dtype=torch.float32,
+                       device=q.device)
+        n_state = make((batch, h, m), dtype=torch.float32, device=q.device)
+    if batch and s:
+        work = torch.empty(launch_plan(batch, s, h, m, chunk)["work"],
+                           dtype=torch.float32, device=q.device)
+        check(launch(library().rimms_mlstm_f32, q, q.data_ptr(),
+                     k.data_ptr(), v.data_ptr(), i_gate.data_ptr(),
+                     log_f.data_ptr(), out.data_ptr(),
+                     c_state.data_ptr() if return_state else None,
+                     n_state.data_ptr() if return_state else None,
+                     work.data_ptr(), batch, s, h, m, int(chunk),
+                     ctypes.c_float(1.0 / math.sqrt(m))), "mlstm")
+        with _count_lock:
+            launches += 1
+    return (out, c_state, n_state) if return_state else out
 
 
 def mlstm_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 i_gate: torch.Tensor, log_f: torch.Tensor, *,
-                chunk: int = CHUNK) -> torch.Tensor:
-    """The kernel's chunkwise recurrence in torch ops.  Same shapes."""
+                chunk: int = CHUNK, return_state: bool = False):
+    """The kernel's chunkwise recurrence in torch ops.  Same shapes and
+    results."""
     batch, s, h, m = q.shape
     bh = batch * h
 
@@ -128,4 +142,8 @@ def mlstm_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         c_state = decay * c_state + kw.transpose(-1, -2) @ vc
         n_state = decay * n_state + kw.sum(dim=1)[..., None]
     hs = torch.cat(outs, dim=1) if outs else qh
-    return hs.reshape(batch, h, s, m).transpose(1, 2).contiguous()
+    hs = hs.reshape(batch, h, s, m).transpose(1, 2).contiguous()
+    if not return_state:
+        return hs
+    return (hs, c_state.reshape(batch, h, m, m),
+            n_state.reshape(batch, h, m))

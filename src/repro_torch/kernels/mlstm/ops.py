@@ -9,9 +9,12 @@ from .mlstm import CHUNK, MAX_CHUNK, MAX_M, mlstm_kernel, mlstm_plain
 
 def mlstm_chunkwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     i_gate: torch.Tensor, log_f: torch.Tensor, *,
-                    chunk: int = CHUNK) -> torch.Tensor:
+                    chunk: int = CHUNK, return_state: bool = False):
     """q, k, v: (B, S, H, m), q unscaled; i_gate, log_f: (B, S, H); all
-    float32.  Returns h (B, S, H, m).
+    float32.  Returns h (B, S, H, m), or with ``return_state`` (h, C, n):
+    the state after the last token, C (B, H, m, m) in the reference's
+    orientation C[a, e] = Σ w k_a v_e and n (B, H, m), float32.  h is
+    the same with and without the state.
 
     CUDA tensors go to the hand-written kernel; CPU tensors to the plain
     torch version; anything else raises.  ``chunk`` is clamped to S, as
@@ -51,7 +54,9 @@ def mlstm_chunkwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if m > MAX_M:
         raise ValueError(f"head width {m} is larger than {MAX_M}")
     if q.is_cuda:
-        return mlstm_kernel(q, k, v, i_gate, log_f, chunk=c)
+        return mlstm_kernel(q, k, v, i_gate, log_f, chunk=c,
+                            return_state=return_state)
     if q.device.type == "cpu":
-        return mlstm_plain(q, k, v, i_gate, log_f, chunk=c)
+        return mlstm_plain(q, k, v, i_gate, log_f, chunk=c,
+                           return_state=return_state)
     raise ValueError(f"mlstm_chunkwise has no kernel for device {q.device}")

@@ -91,6 +91,10 @@ def _decode_self_attention(cfg, q, cache, pos):
 
 
 class DenseLayer:
+    #: leaves held in float32 whatever the compute dtype (none here;
+    #: see :mod:`repro_torch.models.recurrent`)
+    FLOAT32 = ()
+
     @staticmethod
     def init(cfg, gen: torch.Generator):
         return {

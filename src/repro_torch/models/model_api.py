@@ -1,20 +1,25 @@
-"""Model assembly on torch: the dense / VLM stack → Model (init / prefill
-/ decode), the JAX package's ``src/repro/models/model_api.py`` for the
+"""Model assembly on torch: block stacks → Model (init / prefill /
+decode), the JAX package's ``src/repro/models/model_api.py`` for the
 families that are ported.
 
 Params are a plain dict::
 
     {"embed": {"table", "head"[, "pos"]}, "final_norm": {"scale"[, "bias"]},
-     "layers": [one DenseLayer dict per layer]}
+     "layers": [one block's dict per layer, in the plan's order]}
 
-with every tensor in the compute dtype (``cfg.dtype``).  The reference
-stacks its layers on a leading axis for ``lax.scan``; eager torch walks a
-list (:func:`repro_torch.models.convert.params_from_jax` splits the
-stacked tree).
+with every tensor in the compute dtype (``cfg.dtype``), but for the
+leaves a block names in ``FLOAT32`` (read in float32 by the reference).
+The reference stacks each group pattern's layers on a leading axis for
+``lax.scan``; eager torch walks a flat list, groups in order and each
+group's pattern in order (:func:`layer_kinds`;
+:func:`repro_torch.models.convert.params_from_jax` flattens the stacked
+tree the same way).
 
 Families → stack plans (the ported ones):
   dense / vlm      [("dense",) × L]
-MoE, audio, ssm and hybrid raise ``NotImplementedError``.
+  ssm (xlstm)      [("mlstm","slstm") × L/2]
+  hybrid (rg)      [("rec","rec","attn") × 8, ("rec","rec") × 1]
+MoE and audio raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -28,22 +33,49 @@ from repro_torch.configs.base import ArchConfig
 
 from . import layers as L
 from .blocks import DenseLayer
+from .recurrent import MLSTMLayer, RGLRULayer, SLSTMLayer
 
-_NOT_PORTED = ("moe", "audio", "ssm", "hybrid")
+_NOT_PORTED = ("moe", "audio")
+
+BLOCKS = {
+    "dense": DenseLayer,
+    "mlstm": MLSTMLayer,
+    "slstm": SLSTMLayer,
+    "rec": RGLRULayer,
+    "attn": DenseLayer,
+}
 
 
 def stack_plan(cfg: ArchConfig) -> List[Tuple[Tuple[str, ...], int]]:
     if cfg.family in ("dense", "vlm"):
-        return [(("dense",), cfg.n_layers)]
-    if cfg.family in _NOT_PORTED:
+        pattern: Tuple[str, ...] = ("dense",)
+    elif cfg.family in ("ssm", "hybrid"):
+        pattern = cfg.block_pattern
+    elif cfg.family in _NOT_PORTED:
         raise NotImplementedError(
             f"the {cfg.family!r} family is not ported to repro_torch yet: "
-            f"dense and vlm are")
-    raise ValueError(f"unknown family {cfg.family}")
+            f"dense, vlm, ssm and hybrid are")
+    else:
+        raise ValueError(f"unknown family {cfg.family}")
+    k = len(pattern)
+    full, rest = divmod(cfg.n_layers, k)
+    plan = [(pattern, full)]
+    if rest:
+        plan.append((pattern[:rest], 1))
+    return plan
 
 
-def _cast(tree, dtype):
-    return {k: (_cast(v, dtype) if isinstance(v, dict) else v.to(dtype))
+def layer_kinds(cfg: ArchConfig) -> List[str]:
+    """The block kind of every layer, in the order the model runs them."""
+    return [kind for pattern, groups in stack_plan(cfg)
+            for _ in range(groups) for kind in pattern]
+
+
+def _cast(tree, dtype, keep=()):
+    """Every leaf of ``tree`` in ``dtype``, but the top-level leaves
+    named in ``keep``, which go to float32."""
+    return {k: (_cast(v, dtype) if isinstance(v, dict)
+                else v.to(torch.float32 if k in keep else dtype))
             for k, v in tree.items()}
 
 
@@ -60,14 +92,15 @@ class Model:
         compute dtype at once, table by table and layer by layer, so a
         full-width init holds one of them in float32 at a time."""
         cfg = self.cfg
-        stack_plan(cfg)
+        kinds = layer_kinds(cfg)
         dt = L.cdtype(cfg)
         params: Dict[str, Any] = {
             "embed": L.embed_init(cfg, generator, dt),
             "final_norm": _cast(L.norm_init(cfg, generator), dt),
         }
-        params["layers"] = [_cast(DenseLayer.init(cfg, generator), dt)
-                            for _ in range(cfg.n_layers)]
+        params["layers"] = [_cast(BLOCKS[k].init(cfg, generator), dt,
+                                  BLOCKS[k].FLOAT32)
+                            for k in kinds]
         return params
 
     # ---- caches ----------------------------------------------------------------
@@ -75,8 +108,8 @@ class Model:
         from repro_torch.core.runtime import resolve_device
 
         dev = resolve_device(device)
-        return [DenseLayer.init_cache(self.cfg, batch, max_len, dev)
-                for _ in range(self.cfg.n_layers)]
+        return [BLOCKS[k].init_cache(self.cfg, batch, max_len, dev)
+                for k in layer_kinds(self.cfg)]
 
     # ---- forward ---------------------------------------------------------------
     def _embed(self, params, batch):
@@ -92,10 +125,11 @@ class Model:
 
     def _backbone(self, params, x, *, mode, caches, pos, extras):
         new_caches = []
-        for li, p in enumerate(params["layers"]):
+        for li, kind in enumerate(layer_kinds(self.cfg)):
             c = caches[li] if caches is not None else None
-            x, nc = DenseLayer.apply(self.cfg, p, x, mode=mode, cache=c,
-                                     pos=pos, extras=extras)
+            x, nc = BLOCKS[kind].apply(self.cfg, params["layers"][li], x,
+                                       mode=mode, cache=c, pos=pos,
+                                       extras=extras)
             new_caches.append(nc)
         return L.norm_apply(self.cfg, params["final_norm"], x), new_caches
 

@@ -266,6 +266,35 @@ def test_mlstm_kernel_matches_plain(cuda, B, S, H, m, chunk):
     assert ML.launches == before + 1
 
 
+@pytest.mark.parametrize("B,S,H,m,chunk", [(2, 64, 2, 128, 16),
+                                           (1, 32, 4, 64, 8),
+                                           (1, 128, 1, 128, 64),
+                                           (1, 96, 1, 33, 32),
+                                           (1, 64, 2, 24, 64),
+                                           (2, 2047, 4, 512, 89),
+                                           (2, 2048, 4, 512, 128)])
+def test_mlstm_kernel_state_matches_plain(cuda, B, S, H, m, chunk):
+    """``return_state``: the final C and n within 2e-3 of the plain
+    version's (the reference's sweep, ragged widths, and xlstm-350m's
+    prefill at 2047 and 2048 tokens); h bit-identical to a call without
+    the state; one launch a call."""
+    gen = torch.Generator(device=cuda).manual_seed(S + m)
+    q, k, v = (torch.randn(B, S, H, m, device=cuda, generator=gen) * sc
+               for sc in (1.0, 0.3, 1.0))
+    ig = torch.rand(B, S, H, device=cuda, generator=gen) * 0.8 + 0.1
+    lf = torch.log(torch.rand(B, S, H, device=cuda, generator=gen) * 0.45
+                   + 0.5)
+    ins = (q, k, v, ig, lf)
+    before = ML.launches
+    h, C, n = mlstm_ops.mlstm_chunkwise(*ins, chunk=chunk, return_state=True)
+    assert ML.launches == before + 1
+    wh, wc, wn = ML.mlstm_plain(*ins, chunk=chunk, return_state=True)
+    assert C.shape == (B, H, m, m) and n.shape == (B, H, m)
+    for got, want in ((h, wh), (C, wc), (n, wn)):
+        torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+    assert torch.equal(h, mlstm_ops.mlstm_chunkwise(*ins, chunk=chunk))
+
+
 @pytest.mark.parametrize("chunk", [32, 64, 128])
 def test_mlstm_kernel_at_the_ladders_top_rung(cuda, chunk):
     """The autotuner's 8 MiB rung, (1, 5376, 2, 64), at each chunk

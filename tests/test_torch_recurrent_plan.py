@@ -204,6 +204,34 @@ def test_mlstm_every_output_and_column_of_c_covered_once(B, S, H, m, c):
     assert (av == 1).all()
 
 
+@pytest.mark.parametrize("B,S,H,m,c", ML_PLANS[:7])
+def test_mlstm_state_has_every_update_and_is_written_once(B, S, H, m, c):
+    """With ``return_state``, pass 2 applies each (chunk, slice) of the C
+    and n update once, in chunk order: a step's slice one step later in
+    the loop, the last step's after it; then each (a, e) of C is written
+    by the block of e's 16 columns, once, and n once, by column tile 0."""
+    plan = ML.launch_plan(B, S, H, m, c)
+    nm, nz = plan["m_slices"], plan["steps"]
+    nsteps = plan["chunks"] * nz
+    applied = [st - 1 for st in range(1, nsteps) if (st - 1) % nz < nm]
+    if (nsteps - 1) % nz < nm:
+        applied.append(nsteps - 1)  # after the loop
+    assert applied == [j * nz + z for j in range(plan["chunks"])
+                       for z in range(nm)]
+    ccov = np.zeros((m, m), np.int64)
+    ncov = np.zeros(m, np.int64)
+    for bx in range(plan["inter_grid"][0]):
+        e0 = bx * ML.COLS
+        for tid in range(ML.THREADS):
+            for e in range(tid, ML.COLS * m, ML.THREADS):
+                a, col = e // ML.COLS, e % ML.COLS
+                if e0 + col < m:
+                    ccov[a, e0 + col] += 1
+            if bx == 0:
+                ncov[tid:m:ML.THREADS] += 1
+    assert (ccov == 1).all() and (ncov == 1).all()
+
+
 def _mma_m16n8k8(afrag, bfrag):
     """What mma.m16n8k8 computes from per-lane fragments: A's element
     (row, slot) is lane 4 (row % 8) + slot % 4, register (row >= 8) +

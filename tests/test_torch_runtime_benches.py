@@ -272,6 +272,26 @@ def test_overhead_gate_failure_shows_the_repeats(monkeypatch):
         assert all(float(x) > 0 for x in series)
 
 
+@pytest.mark.parametrize("repeats", [3, 7])
+def test_overhead_repeats_set_every_median(monkeypatch, repeats):
+    """``repeats`` (``--repeats`` on the CLI) sets how many interleaved
+    repeats each configuration's median is taken over; the gate stays
+    1.30."""
+    start = len(common.ROWS)
+    bench_overhead.main(["--n-calls", "300", "--device", "cpu",
+                         "--repeats", str(repeats)])
+    # warm-up and `repeats` repeats of three configurations
+    assert f"checks={(1 + 3 * repeats) * 300}" in common.ROWS[start]
+    monkeypatch.setattr(bench_overhead, "SMOKE_RATIO", 0.0)
+    with pytest.raises(AssertionError) as err:
+        bench_overhead.run(n_calls=300, smoke=True, device="cpu",
+                           repeats=repeats)
+    msg = str(err.value)
+    for k in ("baseline", "traced", "paused"):
+        series = msg.split(f"{k} [", 1)[1].split("]", 1)[0].split()
+        assert len(series) == repeats
+
+
 # ---------------------------------------------------------------------------
 # run.py
 # ---------------------------------------------------------------------------

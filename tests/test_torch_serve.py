@@ -24,6 +24,7 @@ from repro.configs import base as jbase
 from repro.configs import get_config as jget_config
 from repro.models import build_model as jbuild_model
 from repro.models import layers as JL
+from repro.models.model_api import stack_plan as jstack_plan
 from repro.serve.engine import ServeEngine as JServeEngine
 from repro.serve.session_engine import SessionServeEngine as JSessionEngine
 from repro_torch.configs import base as tbase
@@ -73,11 +74,18 @@ def test_get_config_accepts_dashed_names():
 
 
 def test_unported_families_raise():
-    for arch in ("granite_moe_3b_a800m", "whisper_large_v3", "xlstm_350m",
-                 "recurrentgemma_2b"):
+    """MoE and audio are not ported; the recurrent families (ssm,
+    hybrid) are, with the reference's plans."""
+    for arch in ("granite_moe_3b_a800m", "whisper_large_v3"):
         with pytest.raises(NotImplementedError):
             stack_plan(get_config(arch))
     assert stack_plan(get_config("internvl2_26b")) == [(("dense",), 48)]
+    assert stack_plan(get_config("xlstm_350m")) == [(("mlstm", "slstm"), 12)]
+    assert stack_plan(get_config("recurrentgemma_2b")) == [
+        (("rec", "rec", "attn"), 8), (("rec", "rec"), 1)]
+    for arch in ("xlstm_350m", "recurrentgemma_2b"):
+        assert stack_plan(get_config(arch)) == \
+            jstack_plan(jget_config(arch))
 
 
 # ----------------------------------------------------------------- layers --
