@@ -98,7 +98,27 @@ Phases, each of which raises (exit code 1) on a failed check:
    state; bit-equal); in float32 ``prefill(prompt)`` against
    ``prefill(prompt[:-1])`` + ``decode_step`` within 2e-3 (1 +
    max|logit|).  The mLSTM launches exactly 12 times a xlstm prefill,
-   the RG-LRU 18 times a recurrentgemma prefill, neither in decode.
+   the RG-LRU 18 times a recurrentgemma prefill, neither in decode;
+13. MoE, audio and training — (a) granite-moe-3b-a800m at full width and
+   depth (32 layers, 40 experts, top-8; bf16, random weights from seed
+   0): a prefill of 2 x 2048 tokens and 16 greedy decode steps (finite
+   logits, tokens in range, the prefill's wall and device-time profile,
+   ms per decode step, the share of (token, expert) slots dropped over
+   capacity), and one MoE layer in float32 on the card against the CPU
+   on the same input and weights: the same expert ids and keep mask,
+   outputs within 1e-4 max|y|; (b) whisper-large-v3 at full width and
+   depth (32 + 32 layers, 1500 frames): frames (2, 1500, 1280) and a 2 x
+   64 prompt, 16 greedy steps, then float32 prefill <-> decode within
+   2e-3 (1 + max|logit|); (c) granite trained at full width and depth
+   through ``Trainer`` (float32 master weights, bf16 compute, AdamW,
+   per-layer remat, batch 1 x 4096, 3 steps): finite loss and grad norm
+   every step, every leaf with a nonzero gradient moved (steps 1-2),
+   one host->device ledger copy per batch leaf and step of the
+   reference's bytes, the peak device memory beside 16 bytes a
+   parameter, and a kernel wrapper given an input that requires grad
+   raising; (a)-(c) launch no kernel; (d) llama3-8b ``smoke()`` in
+   float32 trains 3 steps, checkpoints, restores bit for bit and serves
+   one request through ``ServeEngine`` (the paged kernel).
 
 Phases 3 and 4 also hold the paged-attention kernel against its plain
 version (the reference's sweep, rows of length 0, repeated pages, and
@@ -953,6 +973,11 @@ def phase_paged_kernel(dev):
                                 ((3, 9, 3, 72, 32, 8, 12), [96, 0, 41]))
               for hq, hkv in [shape[1:3]]
               for dt in (torch.bfloat16, torch.float32)]
+    # the lifecycle's: llama3-8b smoke() in float32 through ServeEngine's
+    # defaults (page 16, 512 pages, 32 a row), one request and an idle row
+    cases += [((2, 4, 2, 16, 512, 16, 32), torch.float32, {"lengths": ln},
+               "llama3-8b smoke() lifecycle width")
+              for ln in ([1, 0], [5, 0], [37, 300])]
     err = 0.0
     for shape, dt, kw, what in cases:
         ins = _paged_inputs(inp, *shape, dt, **kw)
@@ -1524,12 +1549,13 @@ def serving_model(dev):
     the port's ``Model.init`` and a seeded generator on the card."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
+    from repro_torch.tree import leaves
 
     cfg = get_config("llama3_8b")
     t0 = time.perf_counter()
     params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
-    n = sum(t.numel() for t in _leaves(params))
+    n = sum(t.numel() for t in leaves(params))
     log(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim_}, vocab "
         f"{cfg.vocab}; {n / 1e9:.3f} B params in {cfg.dtype}, made in "
@@ -1538,21 +1564,14 @@ def serving_model(dev):
     return cfg, params
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, list):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 def serving_work(vocab):
     rng = np.random.default_rng(0)
     return [(rng.integers(1, vocab, size=int(rng.integers(*SERVE_PROMPT)))
              .tolist(), SERVE_NEW) for _ in range(SERVE_REQUESTS)]
+
+
+#: the kernels a device-time profile names, the longest first
+PROFILE_TOP = 10
 
 
 def _profile_steps(step, n: int, own=("paged_attention",)):
@@ -1599,7 +1618,7 @@ def _profile_steps(step, n: int, own=("paged_attention",)):
             "trace_read_s": read, "device_events_per_step": events / n,
             "top_kernels_ms_per_step": {
                 name[:80]: us / n / 1e3
-                for name, us in by_name.most_common(6)}}
+                for name, us in by_name.most_common(PROFILE_TOP)}}
 
 
 def warm_serving(cfg, params):
@@ -2122,13 +2141,14 @@ RECURRENT_KERNEL = {"xlstm_350m": ("mlstm", 2, 2e-3),
 RECURRENT_TOL = 2e-3
 
 
-def recurrent_model(dev, arch, dtype=None, seed=0):
+def full_width_model(dev, arch, dtype=None, seed=0):
     """``arch`` at full width and depth with random weights from the
     port's ``Model.init`` and a seeded generator on the card."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
+    from repro_torch.tree import leaves
 
     cfg = get_config(arch)
     if dtype is not None:
@@ -2137,8 +2157,8 @@ def recurrent_model(dev, arch, dtype=None, seed=0):
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(seed))
     torch.cuda.synchronize()
-    n = sum(t.numel() for t in _leaves(params))
-    log(f"[recurrent] {cfg.name}: {cfg.n_layers} layers, d_model "
+    n = sum(t.numel() for t in leaves(params))
+    log(f"[{cfg.family}] {cfg.name}: {cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, {n / 1e9:.3f} B params in {cfg.dtype}, made in "
         f"{time.perf_counter() - t0:.1f}s")
     return cfg, model, params
@@ -2275,7 +2295,7 @@ def phase_recurrent(dev):
 
     for arch, B, S, n_new in RECURRENT:
         kernel = RECURRENT_KERNEL[arch][0]
-        cfg, model, params = recurrent_model(dev, arch)
+        cfg, model, params = full_width_model(dev, arch)
         finite = []
         # warm the path (allocator, cuBLAS) on a short prompt
         _generate(model, params, prefill, _prompt(cfg, B, 128, dev, 1), 2,
@@ -2335,7 +2355,7 @@ def phase_recurrent(dev):
         torch.cuda.empty_cache()
 
         # float32 prefill <-> decode at full width and depth
-        cfg32, model32, params32 = recurrent_model(dev, arch, "float32")
+        cfg32, model32, params32 = full_width_model(dev, arch, "float32")
         prompt = _prompt(cfg32, B, S, dev, 3)
         full, _ = prefill(model32, params32, prompt, S + 8)
         _, caches = prefill(model32, params32, prompt[:, :-1], S + 8)
@@ -2367,6 +2387,517 @@ def phase_recurrent(dev):
                              f"({dict(prefills)} prefills)")
     log(f"[recurrent] path launches {counts} for prefills "
         f"{dict(prefills)} (comparisons {dict(compare)} taken out)")
+    return records, counts
+
+
+# ------------------------------------------- 13. MoE, audio and training
+#: (a), (b): arch, batch, prompt tokens, greedy decode steps
+MOE_SERVE = ("granite_moe_3b_a800m", 2, 2048, 16)
+AUDIO_SERVE = ("whisper_large_v3", 2, 64, 16)
+#: the MoE layer held card against CPU in float32: the second layer, on
+#: its normed input from the bf16 prefill; outputs within MOE_TOL * max|y|
+MOE_CHECK_LAYER, MOE_TOL = 1, 1e-4
+#: (c): train_4k's sequence, the batch cut from 256 to 1 for one card
+TRAIN = dict(arch="granite_moe_3b_a800m", batch=1, seq=4096, steps=3)
+#: the archs whose smoke() loss gradient is held card against CPU in
+#: float32, each leaf within TRAIN_GRAD_TOL * max|g| (the MoE and audio
+#: blocks' backward; the loss's chunked recompute; per-layer remat)
+TRAIN_GRAD_ARCHS = ("granite_moe_3b_a800m", "whisper_large_v3")
+TRAIN_GRAD_TOL = 1e-4
+#: bytes a parameter while training: float32 weights, gradients, m, v
+TRAIN_BYTES_PER_PARAM = 16
+#: GiB an earlier phase may leave allocated when training starts
+TRAIN_LEFT_GIB = 1.0
+#: phase 13's profiles split device time by these parts of kernel names
+#: (first match): float32 products (attention's einsums), softmax, sorts,
+#: gathers and scatters, dtype casts and copies, other elementwise,
+#: reductions; then cuBLAS's bf16 products ("matmul") and the rest
+P13_KINDS = ("gemm_f32f32", "softmax", "sort", "index", "copy",
+             "elementwise", "reduce")
+
+
+def _frames(cfg, batch, dev, seed):
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.standard_normal(
+        (batch, cfg.enc_seq, cfg.d_model)).astype(np.float32), device=dev)
+
+
+def _served_generation(dev, arch, B, S, n_new, extra_batch=None):
+    """``arch`` at full width and depth in bf16: a warm prefill and two
+    steps on a short prompt, then a prefill of ``B`` x ``S`` and ``n_new``
+    greedy decode steps (finite logits, tokens in range), and a
+    device-time profile of one prefill.  ``extra_batch(cfg, batch)``
+    gives the rest of a prefill's batch (the audio frames).  Returns the
+    record, the model, its params and the prompt's batch."""
+    cfg, model, params = full_width_model(dev, arch)
+    made = {}  # the rest of the batch by batch size, made once
+
+    def extra(b):
+        if b not in made:
+            made[b] = extra_batch(cfg, b) if extra_batch else {}
+        return made[b]
+
+    def prefill(model, params, tokens, max_len):
+        batch = {"tokens": tokens, **extra(tokens.shape[0])}
+        return model.prefill(params, batch, max_len=max_len)
+
+    finite = []
+    with torch.inference_mode():
+        _generate(model, params, prefill, _prompt(cfg, B, 64, dev, 1), 2,
+                  finite)
+        prompt = _prompt(cfg, B, S, dev, 2)
+        toks, prefill_s, decode_s, cont = _generate(model, params, prefill,
+                                                    prompt, n_new, finite)
+        prof = _profile_steps(lambda: prefill(model, params, prompt,
+                                              S + n_new + 8), 1,
+                              own=P13_KINDS)
+
+        def step():
+            logits, cont["caches"] = model.decode_step(
+                params, cont["caches"], cont["tok"],
+                torch.full((B,), cont["pos"], device=dev))
+            finite.append(torch.isfinite(logits).all())
+            cont["tok"], cont["pos"] = torch.argmax(logits, -1), \
+                cont["pos"] + 1
+
+        prof_decode = _profile_steps(step, 5, own=P13_KINDS)
+    if not bool(torch.stack(finite).all()):
+        raise AssertionError(f"{cfg.name}: NaN or Inf in the logits")
+    if not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
+        raise AssertionError(f"{cfg.name}: a token out of range")
+    rec = {"arch": arch, "batch": B, "prompt": S, "new_tokens": n_new,
+           "prefill_wall_ms": prefill_s * 1e3,
+           "ms_per_decode_step": decode_s / n_new * 1e3,
+           "prefill_device_ms": (None if prof is None
+                                 else prof["device_ms_per_step"]),
+           "prefill_busy_share": (None if prof is None else
+                                  prof["device_ms_per_step"]
+                                  / (prefill_s * 1e3)),
+           "decode_busy_share": (None if prof_decode is None else
+                                 prof_decode["device_ms_per_step"]
+                                 / (decode_s / n_new * 1e3)),
+           "prefill_profile": prof, "decode_profile": prof_decode,
+           "tokens_head": toks[0, :8].tolist()}
+    return rec, cfg, model, params, {"tokens": prompt, **extra(B)}
+
+
+def _moe_prefill(cfg, model, params, batch, max_len):
+    """A prefill of ``batch`` walked layer by layer, each MoE layer's
+    routing read from ``moe_apply(..., return_routing=True)`` on the
+    input its MoE gets; each step of the walk must give its layer's own
+    output bit for bit.  Returns the share of (token, expert) slots
+    dropped over capacity, over all MoE layers, and the input layer
+    ``MOE_CHECK_LAYER``'s MoE got."""
+    from repro_torch.models import blocks
+    from repro_torch.models import layers as L
+
+    kept = total = 0
+    extras = {"max_len": max_len}
+    with torch.inference_mode():
+        x = model._embed(params, batch)
+        for li, p in enumerate(params["layers"]):
+            h = L.norm_apply(cfg, p["norm1"], x)
+            attn, _ = blocks._self_attention(cfg, p["attn"], h,
+                                             mode="prefill", cache=None,
+                                             pos=None, extras=extras)
+            mid = x + attn @ p["attn"]["wo"].to(x.dtype)
+            h = L.norm_apply(cfg, p["norm2"], mid)
+            y, routing = blocks.moe_apply(cfg, p["moe"], h,
+                                          return_routing=True)
+            want, _ = blocks.MoELayer.apply(cfg, p, x, mode="prefill",
+                                            extras=extras)
+            x = mid + y
+            if not torch.equal(x, want):
+                raise AssertionError(f"{cfg.name}: the walk's layer {li} "
+                                     f"differs from MoELayer.apply")
+            kept += int(routing["keep"].sum())
+            total += routing["keep"].numel()
+            if li == MOE_CHECK_LAYER:
+                check_input = h
+    return 1.0 - kept / total, check_input
+
+
+def _moe_layer_check(cfg, params, x):
+    """One MoE layer at full width in float32 on the card and on the
+    CPU, the same input (``x``, what layer ``MOE_CHECK_LAYER``'s MoE got
+    in the bf16 prefill, widened) and weights: the same expert ids and
+    keep mask, outputs within MOE_TOL * max|y|, and the gradients of
+    sum(y * r) (``r`` seeded) with respect to the input and to each
+    weight within MOE_TOL * max|g| of the CPU's."""
+    import dataclasses
+
+    from repro_torch.models import blocks
+
+    li = MOE_CHECK_LAYER
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    moe = params["layers"][li]["moe"]
+    r = torch.as_tensor(np.random.default_rng(6).standard_normal(
+        tuple(x.shape)).astype(np.float32))
+    runs = {}
+    for where in ("card", "cpu"):
+        dev = x.device if where == "card" else torch.device("cpu")
+        # fresh float32 leaves (x and its layer's weights were made
+        # under inference_mode)
+        ins = {k: torch.zeros(v.shape, device=dev).copy_(v)
+               .requires_grad_(True)
+               for k, v in {"x": x, **moe}.items()}
+        w = {k: v for k, v in ins.items() if k != "x"}
+        y, routing = blocks.moe_apply(cfg32, w, ins["x"],
+                                      return_routing=True)
+        grads = torch.autograd.grad((y * r.to(dev)).sum(),
+                                    list(ins.values()))
+        runs[where] = (y.detach().cpu(), routing,
+                       {k: g.cpu() for k, g in zip(ins, grads)})
+        if where == "card":
+            torch.cuda.synchronize()
+    (got, r_got, g_got), (want, r_want, g_want) = runs["card"], runs["cpu"]
+    for key in ("experts", "keep"):
+        if not torch.equal(r_got[key].cpu(), r_want[key]):
+            n = int((r_got[key].cpu() != r_want[key]).sum())
+            raise AssertionError(f"{cfg.name} MoE layer {li}: {key} differ "
+                                 f"card vs CPU in {n} of "
+                                 f"{r_want[key].numel()}")
+    err = close(got, want, MOE_TOL, 0.0,
+                f"{cfg.name} MoE layer {li} float32 card vs CPU")
+    grad_err = {k: close(g_got[k], g, MOE_TOL, 0.0,
+                         f"{cfg.name} MoE layer {li} float32 gradient of "
+                         f"{k} card vs CPU")
+                for k, g in g_want.items()}
+    return {"layer": li, "tokens": x.shape[0] * x.shape[1],
+            "capacity": r_want["capacity"],
+            "dropped_share": 1.0 - float(r_want["keep"].float().mean()),
+            "max_abs_err": err, "max_abs_y": want.abs().max().item(),
+            "grad_max_abs_err": grad_err,
+            "grad_max_abs": {k: g.abs().max().item()
+                             for k, g in g_want.items()}}
+
+
+def _audio_f32_check(dev, arch, B, S):
+    """whisper in float32 at full width and depth: prefill(prompt)
+    against prefill(prompt[:-1]) + decode_step, the encoder's keys and
+    values read from the cache, within RECURRENT_TOL * (1 + max|logit|)."""
+    cfg, model, params = full_width_model(dev, arch, "float32")
+    prompt = _prompt(cfg, B, S, dev, 3)
+    frames = _frames(cfg, B, dev, 4)
+    with torch.inference_mode():
+        full, _ = model.prefill(params, {"tokens": prompt, "frames": frames},
+                                max_len=S + 8)
+        _, caches = model.prefill(params, {"tokens": prompt[:, :-1],
+                                           "frames": frames}, max_len=S + 8)
+        last, _ = model.decode_step(params, caches, prompt[:, -1],
+                                    torch.full((B,), S - 1, device=dev))
+    torch.cuda.synchronize()
+    err = close(last, full, RECURRENT_TOL, RECURRENT_TOL,
+                f"{cfg.name} float32 prefill(prompt) vs prefill(prompt[:-1])"
+                f" + decode_step")
+    return err, full.abs().max().item()
+
+
+def _prints(tree):
+    """Each leaf's float64 sum and sum of squares: a leaf that moved
+    changes one of them."""
+    from repro_torch.tree import leaves
+
+    return torch.stack([torch.stack([p.double().sum(),
+                                     p.double().square().sum()])
+                        for p in leaves(tree)])
+
+
+def _train_grad_check(dev):
+    """The gradient of ``Model.loss`` (remat on) on the card against the
+    CPU's, from the same float32 weights and batch, for each arch in
+    TRAIN_GRAD_ARCHS at ``smoke()`` size: the loss within TRAIN_GRAD_TOL
+    relative, each leaf's gradient within TRAIN_GRAD_TOL * max|g| of the
+    CPU's.  Returns the largest error relative to its leaf's max|g|."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import build_model
+    from repro_torch.tree import leaves, leaves_with_paths, map_tree
+
+    out = {}
+    for arch in TRAIN_GRAD_ARCHS:
+        cfg = dataclasses.replace(get_config(arch).smoke(), dtype="float32")
+        model = build_model(cfg)
+        params = model.init(torch.Generator().manual_seed(0))
+        batch = TokenPipeline(cfg, 2, 32, seed=0).batch_at(0)
+        runs = {}
+        for where in ("card", "cpu"):
+            d = dev if where == "card" else torch.device("cpu")
+            p = map_tree(lambda t: t.to(d).requires_grad_(True), params)
+            b = {k: torch.as_tensor(v, device=d) for k, v in batch.items()}
+            loss = model.loss(p, b, remat=True)
+            loss.backward()
+            runs[where] = (loss.item(), [t.grad.cpu() if t.grad is not None
+                                         else torch.zeros(t.shape)
+                                         for t in leaves(p)])
+        (l_got, g_got), (l_want, g_want) = runs["card"], runs["cpu"]
+        if not abs(l_got - l_want) <= TRAIN_GRAD_TOL * abs(l_want):
+            raise AssertionError(f"{arch} smoke loss card {l_got} vs CPU "
+                                 f"{l_want}")
+        worst = 0.0
+        for (path, _), got, want in zip(leaves_with_paths(params), g_got,
+                                        g_want):
+            err = close(got, want, TRAIN_GRAD_TOL, 0.0,
+                        f"{arch} smoke float32 gradient of "
+                        f"{'/'.join(map(str, path))} card vs CPU")
+            top = want.abs().max().item()
+            worst = max(worst, err / top if top else err)
+        out[arch] = {"loss": l_want, "leaves": len(g_want),
+                     "max_rel_grad_err": worst}
+    return out
+
+
+def _train_full_width(dev, out_dir: Path):
+    """granite-moe-3b-a800m at full width and depth through the port's
+    ``Trainer`` on ``cuda:0``: float32 master weights, bf16 compute, AdamW,
+    per-layer remat, batch 1 x 4096, three steps, no checkpoint."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.mlstm import ops as mlstm_ops
+    from repro_torch.models import build_model
+    from repro_torch.train.loop import Trainer, TrainerConfig
+
+    cfg = get_config(TRAIN["arch"])
+    n_params = build_model(cfg).param_counts()["total"]
+    reckon_gib = n_params * TRAIN_BYTES_PER_PARAM / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, TRAIN["batch"], TRAIN["seq"], TrainerConfig(
+        steps=TRAIN["steps"], ckpt_every=10 ** 9, log_every=1,
+        ckpt_dir=str(out_dir / "unused_ckpt")), device=dev)
+    trainer.init_state()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    before = _prints(trainer.params)
+    report = trainer.run()
+    peak = torch.cuda.max_memory_allocated()
+    # every leaf some step gave a nonzero gradient (its first moment is
+    # not 0) moved
+    from repro_torch.tree import leaves, leaves_with_paths
+
+    nonzero = torch.stack([(m != 0).any()
+                           for m in leaves(trainer.opt_state["m"])])
+    moved = (_prints(trainer.params) != before).any(dim=1)
+    stuck = (nonzero & ~moved).cpu()
+    if bool(stuck.any()):
+        paths = [p for p, _ in leaves_with_paths(trainer.params)]
+        raise AssertionError(
+            "leaves with a nonzero gradient did not move: "
+            + ", ".join("/".join(map(str, paths[i]))
+                        for i in torch.nonzero(stuck).flatten()[:8]))
+    update_check = {"leaves": len(nonzero),
+                    "nonzero_grad": int(nonzero.sum()),
+                    "moved": int(moved.sum())}
+    metrics = report["metrics"]
+    if [m["step"] for m in metrics] != list(range(1, TRAIN["steps"] + 1)):
+        raise AssertionError(f"training logged steps "
+                             f"{[m['step'] for m in metrics]}")
+    for m in metrics:
+        if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])):
+            raise AssertionError(f"training step {m['step']}: loss "
+                                 f"{m['loss']}, grad norm {m['grad_norm']}")
+    # one host->device copy per batch leaf (tokens, labels) and step, of
+    # the reference's bytes (int32 (batch, seq))
+    tr = report["transfers"]
+    want_copies = 2 * TRAIN["steps"]
+    want_bytes = want_copies * TRAIN["batch"] * TRAIN["seq"] * 4
+    if (tr["total_copies"], tr["total_bytes"]) != (want_copies, want_bytes) \
+            or tr["by_pair"] != {"host:cpu->device:gpu0": want_copies}:
+        raise AssertionError(f"training ledger {tr['by_pair']}, "
+                             f"{tr['total_bytes']} bytes; want "
+                             f"{want_copies} host->device copies of "
+                             f"{want_bytes} bytes")
+    # a CUDA kernel wrapper given an input that requires grad raises
+    q = torch.zeros((1, 16, 2, 64), device=dev, requires_grad=True)
+    z = torch.zeros((1, 16, 2), device=dev)
+    try:
+        mlstm_ops.mlstm_chunkwise(q, q.detach(), q.detach(), z, z, chunk=8)
+    except NotImplementedError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("mlstm_chunkwise returned an output under grad")
+    # where a step's device time goes: one more step, then the AdamW
+    # update alone (its gradients: the first moments, any float32 tree)
+    from repro_torch.optim.adamw import AdamWConfig, adamw_update
+
+    batch = trainer._stage_batch(next(trainer.pipeline))
+    prof_step = _profile_steps(lambda: trainer.step_fn(
+        trainer.params, trainer.opt_state, batch), 1, own=P13_KINDS)
+    prof_adamw = _profile_steps(lambda: adamw_update(
+        AdamWConfig(), trainer.opt_state["m"], trainer.opt_state,
+        trainer.params), 1, own=P13_KINDS)
+    last = metrics[-1]["sec_per_step"]
+    rec = {"arch": TRAIN["arch"], "batch": TRAIN["batch"],
+           "seq": TRAIN["seq"], "steps": TRAIN["steps"],
+           "params": n_params, "init_s": init_s,
+           "sec_per_step": [m["sec_per_step"] for m in metrics],
+           "tokens_per_s_last_step": TRAIN["batch"] * TRAIN["seq"] / last,
+           "loss": [m["loss"] for m in metrics],
+           "grad_norm": [m["grad_norm"] for m in metrics],
+           "update_check": update_check,
+           "max_memory_allocated_gib": peak / 2 ** 30,
+           "reckoned_state_gib": reckon_gib,
+           "ledger": {k: tr[k] for k in ("total_copies", "total_bytes",
+                                         "by_pair")},
+           "grad_refusal": refused,
+           "step_busy_share": (None if prof_step is None else
+                               prof_step["device_ms_per_step"] / 1e3 / last),
+           "step_profile": prof_step, "adamw_profile": prof_adamw}
+    del trainer
+    return rec
+
+
+def _lifecycle(dev, out_dir: Path):
+    """``tests/test_system.py``'s train-then-serve on the card:
+    llama3-8b ``smoke()`` in float32 trains 3 steps, checkpoints,
+    restores bit for bit, then ``ServeEngine`` serves one request (the
+    paged-attention kernel), with the tokens ``ServeEngine`` on the CPU
+    (the plain version) gives.  Returns the record and the launches."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train.checkpoint import restore_checkpoint
+    from repro_torch.train.loop import Trainer, TrainerConfig
+    from repro_torch.tree import leaves, map_tree
+
+    cfg = dataclasses.replace(get_config("llama3_8b").smoke(),
+                              dtype="float32")
+    ckpt = out_dir / "lifecycle_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    trainer = Trainer(cfg, batch_size=2, seq_len=16, tcfg=TrainerConfig(
+        steps=3, ckpt_every=3, ckpt_dir=str(ckpt)), device=dev)
+    report = trainer.run()
+    if report["final_step"] != 3:
+        raise AssertionError(f"lifecycle trained {report['final_step']} "
+                             f"steps, want 3")
+    like = {"params": trainer.params, "opt": trainer.opt_state}
+    restored, step, _ = restore_checkpoint(ckpt, like)
+    if step != 3 or not all(a.device == b.device and torch.equal(a, b)
+                            for a, b in zip(leaves(restored), leaves(like))):
+        raise AssertionError("lifecycle: the restored state differs from "
+                             "the trained one")
+    before = read_counts()["paged_attention"]
+    eng = ServeEngine(cfg, restored["params"], max_batch=2)
+    req = eng.submit([1, 2, 3], max_new_tokens=3)
+    eng.run()
+    torch.cuda.synchronize()
+    launches = read_counts()["paged_attention"] - before
+    if not (req.done and len(req.generated) == 3
+            and all(0 <= t < cfg.vocab for t in req.generated)):
+        raise AssertionError(f"lifecycle: request {req.generated}, done "
+                             f"{req.done}")
+    if launches <= 0:
+        raise AssertionError("lifecycle: the paged-attention kernel never "
+                             "ran")
+    # the same request served on the CPU, through the plain version
+    cpu = ServeEngine(cfg, map_tree(lambda t: t.cpu(), restored["params"]),
+                      max_batch=2, device="cpu")
+    want = cpu.submit([1, 2, 3], max_new_tokens=3)
+    cpu.run()
+    if req.generated != want.generated:
+        raise AssertionError(f"lifecycle: the card served {req.generated}, "
+                             f"the CPU {want.generated}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return {"final_step": 3, "restored_bit_for_bit": True,
+            "generated": req.generated, "losses": [
+                m["loss"] for m in report["metrics"]],
+            "paged_attention_launches": launches}, launches
+
+
+def phase_moe_audio_train(dev, out_dir: Path):
+    """Phase 13: granite-moe-3b-a800m and whisper-large-v3 at full width
+    and depth (bf16 generation, device-time profiles, the MoE layer held
+    card against CPU, whisper's float32 prefill <-> decode), granite's
+    training at full width and depth, and the train -> checkpoint ->
+    serve lifecycle at smoke size.  (a)-(c) reach no hand-written kernel
+    (the MoE, encoder and cross blocks and the loss are plain torch, as
+    they are plain XLA in the reference); (d) launches the paged kernel.
+    Returns the records and the launches of the phase."""
+    import gc
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    records = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    # (a) granite-moe-3b-a800m
+    arch, B, S, n_new = MOE_SERVE
+    rec, cfg, model, params, batch = _served_generation(dev, arch, B, S,
+                                                        n_new)
+    rec["dropped_share"], x = _moe_prefill(cfg, model, params, batch,
+                                           S + n_new + 8)
+    rec["moe_layer_check"] = _moe_layer_check(cfg, params, x)
+    log(f"[moe] {cfg.name} bf16: " + json.dumps(
+        {k: v for k, v in rec.items() if not k.endswith("_profile")}))
+    for what in ("prefill", "decode"):
+        log(f"[moe] {cfg.name} {what} profile: "
+            + json.dumps(rec[what + "_profile"]))
+    records["moe"] = rec
+    del model, params, batch, x
+    # (b) whisper-large-v3
+    arch, B, S, n_new = AUDIO_SERVE
+    rec, cfg, model, params, _ = _served_generation(
+        dev, arch, B, S, n_new,
+        extra_batch=lambda cfg, b: {"frames": _frames(cfg, b, dev, 5)})
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    err, top = _audio_f32_check(dev, arch, B, S)
+    rec["f32_prefill_decode_max_abs_err"] = err
+    rec["f32_max_abs_logit"] = top
+    log(f"[audio] {cfg.name} bf16: " + json.dumps(
+        {k: v for k, v in rec.items() if not k.endswith("_profile")}))
+    for what in ("prefill", "decode"):
+        log(f"[audio] {cfg.name} {what} profile: "
+            + json.dumps(rec[what + "_profile"]))
+    log(f"[audio] {cfg.name} float32: prefill of {S} tokens against "
+        f"prefill of {S - 1} + decode_step: max|err| {err:.3e} (limit "
+        f"{RECURRENT_TOL} * (1 + max|logit| {top:.4g}))")
+    records["audio"] = rec
+    serve_s = time.perf_counter() - t0
+    # (c) training at full width: nothing of (a), (b) or phase 12 left
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() / 2 ** 30
+    log(f"[train] device memory before training {left:.3f} GiB")
+    if left > TRAIN_LEFT_GIB:  # the peak below is training's alone
+        raise AssertionError(f"{left:.3f} GiB still allocated before "
+                             f"training: an earlier phase left tensors on "
+                             f"the card")
+    t1 = time.perf_counter()
+    rec = _train_full_width(dev, out_dir)
+    rec["phase_s"] = time.perf_counter() - t1
+    log(f"[train] {rec['arch']} full width, batch {rec['batch']} x "
+        f"{rec['seq']}: " + json.dumps(
+            {k: v for k, v in rec.items() if not k.endswith("_profile")}))
+    for what in ("step", "adamw"):
+        log(f"[train] {what} profile: " + json.dumps(rec[what + "_profile"]))
+    log(f"[train] peak device memory {rec['max_memory_allocated_gib']:.2f} "
+        f"GiB against {rec['reckoned_state_gib']:.2f} GiB reckoned for "
+        f"{rec['params'] / 1e9:.3f} B parameters x "
+        f"{TRAIN_BYTES_PER_PARAM} bytes (weights, grads, m, v) plus "
+        f"activations")
+    records["train"] = rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    records["train_grad_check"] = _train_grad_check(dev)
+    log(f"[train] float32 smoke() loss gradients card vs CPU (each leaf "
+        f"within {TRAIN_GRAD_TOL} * max|g|): "
+        + json.dumps(records["train_grad_check"]))
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"the MoE, audio and training paths launched "
+                             f"kernels {counts}; they reach none")
+    # (d) the lifecycle at smoke size
+    rec, launches = _lifecycle(dev, out_dir)
+    log("[lifecycle] " + json.dumps(rec))
+    records["lifecycle"] = rec
+    counts = read_counts()
+    if counts != {**{k: 0 for k in counts}, "paged_attention": launches}:
+        raise AssertionError(f"phase 13 launches {counts}")
+    records["serve_phases_s"] = serve_s
     return records, counts
 
 
@@ -2467,6 +2998,13 @@ def main() -> int:
     for r in recurrent.values():
         errs[r["kernel"]] = max(errs[r["kernel"]], r["kernel_max_abs_err"])
 
+    t0 = time.perf_counter()
+    moe_audio, p13_counts = phase_moe_audio_train(
+        dev, ROOT / "build" / "moe_audio_train")
+    p13_s = time.perf_counter() - t0
+    log(f"[moe/audio/train] phase in {p13_s:.1f}s; kernel launches "
+        f"{p13_counts}")
+
     def pick(kernel, key, value):
         return next(r for r in timing
                     if r["kernel"] == kernel and r.get(key) == value)
@@ -2538,6 +3076,10 @@ def main() -> int:
                     "bound_two_pass_twiddles_ms")}
                 for r in timing if r["kernel"] == "fft"]}
                if kname == "fft" else {}),
+            # paged attention: the train -> checkpoint -> serve
+            # lifecycle's launches (phase 13)
+            **({"lifecycle_launches": p13_counts[kname]}
+               if kname == "paged_attention" else {}),
             **({"paper_suite_launches": suite["launches"][kname],
                 "multitenant_launches": runtime["launches"][kname],
                 "multitenant_launches_by_depth": {
@@ -2555,6 +3097,11 @@ def main() -> int:
     log("[recurrent] summary " + json.dumps(
         {arch: {k: v for k, v in r.items() if not k.endswith("_profile")}
          for arch, r in recurrent.items()}))
+    log("[moe/audio/train] summary " + json.dumps(
+        {k: ({kk: vv for kk, vv in v.items()
+              if not kk.endswith("_profile")}
+             if isinstance(v, dict) else v)
+         for k, v in moe_audio.items()} | {"phase_s": p13_s}))
     log(f"[done] {time.perf_counter() - t_start:.1f}s in all")
     log(smi)
     log(json.dumps({"kernels": kernels}))

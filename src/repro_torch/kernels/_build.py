@@ -34,8 +34,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ["library", "check", "launch", "raw_stream", "CSRC", "BUILD_DIR",
-           "ARCH_FLAGS", "build_seconds", "build_log"]
+__all__ = ["library", "check", "launch", "raw_stream", "refuse_grad", "CSRC",
+           "BUILD_DIR", "ARCH_FLAGS", "build_seconds", "build_log"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -143,6 +143,21 @@ def library() -> ctypes.CDLL:
             build_seconds = time.perf_counter() - t0
             _lib = _bind(ctypes.CDLL(str(target)))
     return _lib
+
+
+def refuse_grad(kernel: str, *tensors: torch.Tensor) -> None:
+    """Raise :class:`NotImplementedError` when autograd would record a
+    call of ``kernel`` on ``tensors`` (grad mode on and any of them
+    requiring grad).  The kernels have no backward: a ctypes launch
+    returns an output with no ``grad_fn``, so a ``loss.backward()``
+    through it would silently drop every gradient beneath.  The wrappers
+    call this on their CUDA branch only; the plain versions on the CPU
+    are differentiable torch."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{kernel}: the CUDA kernel has no backward (ROADMAP A12); "
+            f"call it under torch.no_grad() or torch.inference_mode(), or "
+            f"on CPU tensors, whose plain version is differentiable")
 
 
 def check(status: int, name: str) -> None:

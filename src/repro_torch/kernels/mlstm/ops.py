@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import torch
 
+from .._build import refuse_grad
 from .mlstm import CHUNK, MAX_CHUNK, MAX_M, mlstm_kernel, mlstm_plain
 
 
@@ -54,6 +55,7 @@ def mlstm_chunkwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if m > MAX_M:
         raise ValueError(f"head width {m} is larger than {MAX_M}")
     if q.is_cuda:
+        refuse_grad("mlstm_chunkwise", q, k, v, i_gate, log_f)
         return mlstm_kernel(q, k, v, i_gate, log_f, chunk=c,
                             return_state=return_state)
     if q.device.type == "cpu":

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from .._build import refuse_grad
 from .rg_lru import LANES, rg_lru_kernel, rg_lru_plain
 
 
@@ -51,6 +52,7 @@ def rg_lru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor, *,
                          f"{tuple(h0.shape)}")
     lanes = _clamp_lanes(block_lanes, d)
     if a.is_cuda:
+        refuse_grad("rg_lru_scan", a, b, h0)
         return rg_lru_kernel(a, b, h0, block_lanes=lanes)
     if a.device.type == "cpu":
         return rg_lru_plain(a, b, h0)

@@ -1,5 +1,7 @@
-"""Transformer layer blocks on torch: the KV-cache helpers and the dense
-GQA decoder layer (llama / yi / command-r / qwen, and the VLM backbone).
+"""Transformer layer blocks on torch: the KV-cache helpers, the dense
+GQA decoder layer (llama / yi / command-r / qwen, and the VLM backbone),
+the bidirectional encoder and cross-attention decoder layers (whisper),
+and the sort-based MoE FFN with its layer (granite / qwen3-moe).
 
 Block protocol (the JAX package's, ``src/repro/models/blocks.py``): a
 block is a namespace of functions
@@ -8,16 +10,22 @@ block is a namespace of functions
   init_cache(cfg, batch, max_len, device) -> cache dict
   apply(cfg, params, x, *, mode, cache, pos, extras) -> (x, new_cache)
 
-``mode`` ∈ {"prefill", "decode"}; ``pos`` is (B,) — the position being
-generated in decode.  Caches are returned as new tensors (the reference
-threads functional arrays); nothing is updated in place here.
+``mode`` ∈ {"train", "prefill", "decode"}; ``pos`` is (B,) — the
+position being generated in decode.  Train mode is prefill without the
+cache (``new_cache`` None).  Caches are returned as new tensors (the
+reference threads functional arrays); nothing is updated in place here.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
 
 from . import layers as L
+
+MODES = ("train", "prefill", "decode")
 
 # ---------------------------------------------------------------------------
 # KV cache helpers
@@ -72,6 +80,11 @@ def _cache_write_token(cfg, cache, k_new, v_new, pos):
     return {"k": k, "v": v}
 
 
+def _check_mode(block: str, mode: str) -> None:
+    if mode not in MODES:
+        raise ValueError(f"{block} mode {mode!r}: one of {MODES}")
+
+
 def _decode_self_attention(cfg, q, cache, pos):
     """Self-attention against the cache.  Windowed archs use a ring
     buffer: every stored slot is inside the window by construction, so
@@ -83,6 +96,24 @@ def _decode_self_attention(cfg, q, cache, pos):
         return L.decode_attention(cfg, q, cache["k"], cache["v"], valid,
                                   apply_window=False)
     return L.decode_attention(cfg, q, cache["k"], cache["v"], kv_len)
+
+
+def _self_attention(cfg, params, h, *, mode, cache, pos, extras,
+                    rope: bool = True):
+    """A decoder block's causal self-attention on its normed input ``h``:
+    (the attention's output (B,S,Hq*hd) before ``wo``, the new KV cache).
+    Decode writes one token into ``cache``; prefill builds a fresh cache
+    of ``extras["max_len"]``; train builds none and returns ``cache``."""
+    if mode == "decode":
+        q, k, v = L._project_qkv(cfg, params, h, pos[:, None], rope)
+        cache = _cache_write_token(cfg, cache, k, v, pos)
+        return _decode_self_attention(cfg, q, cache, pos), cache
+    S = h.shape[1]
+    positions = torch.arange(S, device=h.device)[None, :]
+    q, k, v = L._project_qkv(cfg, params, h, positions, rope)
+    if mode == "prefill":
+        cache = build_prefill_cache(cfg, k, v, extras["max_len"])
+    return L.full_attention(cfg, q, k, v), cache
 
 
 # ---------------------------------------------------------------------------
@@ -110,21 +141,269 @@ class DenseLayer:
 
     @staticmethod
     def apply(cfg, params, x, *, mode, cache=None, pos=None, extras=None):
+        _check_mode("DenseLayer", mode)
         h = L.norm_apply(cfg, params["norm1"], x)
-        if mode == "decode":
-            q, k, v = L._project_qkv(cfg, params["attn"], h, pos[:, None])
-            cache = _cache_write_token(cfg, cache, k, v, pos)
-            attn = _decode_self_attention(cfg, q, cache, pos)
-        elif mode == "prefill":
-            S = x.shape[1]
-            positions = torch.arange(S, device=x.device)[None, :]
-            q, k, v = L._project_qkv(cfg, params["attn"], h, positions)
-            cache = build_prefill_cache(cfg, k, v, extras["max_len"])
-            attn = L.full_attention(cfg, q, k, v)
-        else:
-            raise ValueError(f"DenseLayer mode {mode!r} is not ported: "
-                             f"prefill or decode")
+        attn, cache = _self_attention(cfg, params["attn"], h, mode=mode,
+                                      cache=cache, pos=pos, extras=extras)
         x = x + attn @ params["attn"]["wo"].to(x.dtype)
         h = L.norm_apply(cfg, params["norm2"], x)
         x = x + L.mlp_apply(cfg, params["mlp"], h)
+        return x, cache
+
+
+def _attend(q, k, v, dims):
+    """Unmasked GQA attention, a single-shot float32 softmax: q
+    (B,S,Hq,hd), k, v (B,T,Hkv,hd) → (B,S,Hq*hd) in q's dtype; the
+    probabilities are cast to the compute dtype before P·V, as the
+    reference casts them."""
+    B, S = q.shape[:2]
+    qg = q.reshape(B, S, dims.n_kv, dims.group, dims.head_dim)
+    scale = 1.0 / math.sqrt(dims.head_dim)
+    scores = torch.einsum("bckgd,btkd->bkgct", qg.float(), k.float()) * scale
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgct,btkd->bckgd", probs.to(q.dtype).float(),
+                       v.float()).to(q.dtype)
+    return out.reshape(B, S, dims.n_q * dims.head_dim)
+
+
+# ---------------------------------------------------------------------------
+# Bidirectional encoder layer (whisper encoder)
+# ---------------------------------------------------------------------------
+
+
+class EncoderLayer:
+    """The dense layer's params, attention over the whole sequence with
+    no mask and no rope; it keeps no cache."""
+
+    FLOAT32 = ()
+    init = staticmethod(DenseLayer.init)
+
+    @staticmethod
+    def init_cache(cfg, batch, max_len, device=None):
+        return {}
+
+    @staticmethod
+    def apply(cfg, params, x, *, mode, cache=None, pos=None, extras=None):
+        _check_mode("EncoderLayer", mode)
+        h = L.norm_apply(cfg, params["norm1"], x)
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        q, k, v = L._project_qkv(cfg, params["attn"], h, positions,
+                                 rope=False)
+        attn = _attend(q, k, v, L.attn_dims(cfg))
+        x = x + attn @ params["attn"]["wo"].to(x.dtype)
+        h = L.norm_apply(cfg, params["norm2"], x)
+        x = x + L.mlp_apply(cfg, params["mlp"], h)
+        return x, cache
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention decoder layer (whisper decoder)
+# ---------------------------------------------------------------------------
+
+
+class CrossLayer:
+    """Causal self-attention (learned positions, no rope), cross-attention
+    over the encoder's output, MLP.  The cache adds ``xk``/``xv``, the
+    encoder output's keys and values: prefill builds them from
+    ``extras["enc"]``, decode reads them."""
+
+    FLOAT32 = ()
+
+    @staticmethod
+    def init(cfg, gen: torch.Generator):
+        return {
+            "norm1": L.norm_init(cfg, gen),
+            "attn": L.attention_init(cfg, gen),
+            "norm_x": L.norm_init(cfg, gen),
+            "xattn": L.attention_init(cfg, gen),
+            "norm2": L.norm_init(cfg, gen),
+            "mlp": L.mlp_init(cfg, gen),
+        }
+
+    @staticmethod
+    def init_cache(cfg, batch, max_len, device=None):
+        c = kv_cache_init(cfg, batch, max_len, device)
+        dims = L.attn_dims(cfg)
+        xshape = (batch, cfg.enc_seq, dims.n_kv, dims.head_dim)
+        c["xk"] = torch.zeros(xshape, dtype=L.cdtype(cfg), device=device)
+        c["xv"] = torch.zeros(xshape, dtype=L.cdtype(cfg), device=device)
+        return c
+
+    @staticmethod
+    def _cross_kv(cfg, params, enc):
+        """The encoder output's keys and values (B,T,Hkv,hd).  One device:
+        the reference's GQA repeat factor is 1 (no tensor-parallel axis),
+        so the heads are never repeated."""
+        dims = L.attn_dims(cfg)
+        dt = enc.dtype
+        B, T = enc.shape[:2]
+        k = (enc @ params["wk"].to(dt)).reshape(B, T, cfg.n_kv_heads,
+                                                dims.head_dim)
+        v = (enc @ params["wv"].to(dt)).reshape(B, T, cfg.n_kv_heads,
+                                                dims.head_dim)
+        return k, v
+
+    @staticmethod
+    def apply(cfg, params, x, *, mode, cache=None, pos=None, extras=None):
+        _check_mode("CrossLayer", mode)
+        B, S = x.shape[:2]
+        dt = x.dtype
+        dims = L.attn_dims(cfg)
+        # -- causal self attention ---------------------------------------
+        h = L.norm_apply(cfg, params["norm1"], x)
+        if mode == "decode":
+            q, k, v = L._project_qkv(cfg, params["attn"], h, pos[:, None],
+                                     rope=False)
+            cache = dict(cache)
+            cache.update(_cache_write_token(
+                cfg, {"k": cache["k"], "v": cache["v"]}, k, v, pos))
+            attn = L.decode_attention(cfg, q, cache["k"], cache["v"],
+                                      pos + 1)
+        else:
+            attn, cache = _self_attention(cfg, params["attn"], h, mode=mode,
+                                          cache=cache, pos=pos,
+                                          extras=extras, rope=False)
+        x = x + attn @ params["attn"]["wo"].to(dt)
+        # -- cross attention ------------------------------------------------
+        h = L.norm_apply(cfg, params["norm_x"], x)
+        q = (h @ params["xattn"]["wq"].to(dt)).reshape(B, S, dims.n_q,
+                                                       dims.head_dim)
+        if mode == "decode":
+            xk, xv = cache["xk"], cache["xv"]
+        else:
+            xk, xv = CrossLayer._cross_kv(cfg, params["xattn"], extras["enc"])
+            if mode == "prefill":
+                cache = dict(cache)
+                cache["xk"] = xk.to(L.cdtype(cfg))
+                cache["xv"] = xv.to(L.cdtype(cfg))
+        xa = _attend(q, xk, xv, dims)
+        x = x + xa @ params["xattn"]["wo"].to(dt)
+        # -- MLP ----------------------------------------------------------------
+        h = L.norm_apply(cfg, params["norm2"], x)
+        x = x + L.mlp_apply(cfg, params["mlp"], h)
+        return x, cache
+
+
+# ---------------------------------------------------------------------------
+# MoE FFN (sort-based token dispatch, capacity drop) + MoE layer
+# ---------------------------------------------------------------------------
+
+
+def moe_init(cfg, gen: torch.Generator):
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    return {
+        "router": L.dense_init(gen, (d, e)),
+        "w_in": L.dense_init(gen, (e, d, f), in_axis=1),
+        "w_gate": L.dense_init(gen, (e, d, f), in_axis=1),
+        "w_out": L.dense_init(gen, (e, f, d), in_axis=1),
+    }
+
+
+def moe_capacity(cfg, n_tokens: int) -> int:
+    """Slots per expert for ``n_tokens`` tokens: the reference's
+    expression, to the same Python float."""
+    return max(1, int(math.ceil(n_tokens * cfg.top_k / cfg.n_experts
+                                * cfg.capacity_factor)))
+
+
+def moe_apply(cfg, params, x, *, return_routing: bool = False):
+    """Sort-based MoE dispatch: top-k → stable sort by expert → capacity
+    buffers (E, C, D) → batched expert products → combine.  A token past
+    its expert's capacity contributes nothing.
+
+    One dispatch group: the reference groups tokens by batch shard
+    (``_moe_groups``), which is 1 without a mesh, so on one device all
+    B·S tokens share one sort and one set of buffers.
+
+    Every index move is injective (``index_select`` or ``index_copy``
+    with unique indices: a dropped entry gets a row of its own past the
+    buffers), so the forward pass and the gradients are reproducible on
+    the card, where float atomics over repeated indices
+    (``index_add_``) are not, and no backward accumulates thousands of
+    repeated rows one after another.  Each token's K contributions are
+    summed in ascending expert order (the reference's scatter-add
+    order), one add at a time.
+
+    ``return_routing`` also returns ``{"experts", "weights", "keep"}``,
+    each (B·S, K) in top-k order, and ``"capacity"``."""
+    B, S, D = x.shape
+    T = B * S
+    K, E = cfg.top_k, cfg.n_experts
+    capacity = moe_capacity(cfg, T)
+    dt = x.dtype
+    dev = x.device
+
+    xf = x.reshape(T, D)
+    probs = torch.softmax((xf @ params["router"].to(dt)).float(), dim=-1)
+    # top-k with ties to the lower expert index, as jax.lax.top_k
+    vals, eidx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    vals, eidx = vals[:, :K], eidx[:, :K]
+    vals = vals / torch.sum(vals, dim=-1, keepdim=True)
+
+    order = torch.argsort(eidx.reshape(T * K), stable=True)
+    se = eidx.reshape(T * K)[order]
+    sw = vals.reshape(T * K)[order]
+    counts = torch.bincount(se, minlength=E)
+    offsets = torch.cumsum(counts, 0) - counts  # exclusive
+    slot_pos = torch.arange(T * K, device=dev) - offsets[se]
+    keep = slot_pos < capacity
+
+    # every sorted entry gets a row of its own: a kept one its slot
+    # (e, c) at e * C + c, a dropped one a row past the buffers
+    n_slots = E * capacity
+    slot = torch.where(keep, se * capacity + slot_pos,
+                       n_slots + torch.cumsum(~keep, 0) - 1)
+    x_sorted = xf[:, None, :].expand(T, K, D).reshape(T * K, D).index_select(
+        0, order)
+    buf = xf.new_zeros((n_slots + T * K, D)).index_copy(0, slot, x_sorted)
+    buf = buf[:n_slots].view(E, capacity, D)  # empty slots stay 0
+
+    h = F.silu(torch.bmm(buf, params["w_gate"].to(dt))) * torch.bmm(
+        buf, params["w_in"].to(dt))
+    y = torch.bmm(h, params["w_out"].to(dt))  # (E, C, D)
+
+    # combine: each kept entry reads its slot, weighted; dropped read 0
+    y_sorted = torch.cat([y.reshape(n_slots, D),
+                          y.new_zeros((T * K, D))]).index_select(0, slot)
+    y_sorted = y_sorted * (sw * keep).to(dt)[:, None]
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(T * K, device=dev)
+    # a token's entries in ascending sorted position = ascending expert
+    y_tok = y_sorted.index_select(
+        0, torch.sort(inv.view(T, K), dim=1).values.reshape(-1)).view(T, K, D)
+    out = y_tok[:, 0]
+    for k in range(1, K):
+        out = out + y_tok[:, k]
+    out = out.reshape(B, S, D)
+    if not return_routing:
+        return out
+    return out, {"experts": eidx, "weights": vals,
+                 "keep": keep[inv].view(T, K), "capacity": capacity}
+
+
+class MoELayer:
+    FLOAT32 = ()
+
+    @staticmethod
+    def init(cfg, gen: torch.Generator):
+        return {
+            "norm1": L.norm_init(cfg, gen),
+            "attn": L.attention_init(cfg, gen),
+            "norm2": L.norm_init(cfg, gen),
+            "moe": moe_init(cfg, gen),
+        }
+
+    @staticmethod
+    def init_cache(cfg, batch, max_len, device=None):
+        return kv_cache_init(cfg, batch, max_len, device)
+
+    @staticmethod
+    def apply(cfg, params, x, *, mode, cache=None, pos=None, extras=None):
+        _check_mode("MoELayer", mode)
+        h = L.norm_apply(cfg, params["norm1"], x)
+        attn, cache = _self_attention(cfg, params["attn"], h, mode=mode,
+                                      cache=cache, pos=pos, extras=extras)
+        x = x + attn @ params["attn"]["wo"].to(x.dtype)
+        h = L.norm_apply(cfg, params["norm2"], x)
+        x = x + moe_apply(cfg, params["moe"], h)
         return x, cache

@@ -1,5 +1,5 @@
 """Model primitives on torch: norms, RoPE, GQA attention (row-chunked),
-MLPs, embeddings — what the dense and VLM families need.
+MLPs, embeddings and the chunked cross-entropy loss.
 
 Conventions (the JAX package's, ``src/repro/models/layers.py``)
 -----------------------------------------------------------------
@@ -26,6 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -303,7 +304,7 @@ def mlp_apply(cfg, params, x):
 
 
 # ---------------------------------------------------------------------------
-# Embedding / head
+# Embedding / head / loss
 # ---------------------------------------------------------------------------
 
 
@@ -333,3 +334,31 @@ def lm_logits(cfg, params, x):
     else:
         w = params["head"].to(x.dtype)
     return x @ w
+
+
+def xent_loss(cfg, params, hidden, labels, *, chunk: int = 512):
+    """Sequence-chunked softmax cross-entropy in float32 (keeps (B,C,V)
+    logits bounded).  hidden: (B,S,D); labels: (B,S) with -100 = ignore.
+    With more than one chunk and grad mode on, each chunk's logits are
+    recomputed in the backward pass rather than kept, as the reference's
+    ``jax.checkpoint(piece)``."""
+    B, S, _ = hidden.shape
+    C = divisor_chunk(S, chunk)
+    n = S // C
+
+    def piece(h_c, y_c):
+        logits = lm_logits(cfg, params, h_c).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            torch.clamp_min(y_c, 0).long()[..., None])[..., 0]
+        valid = (y_c >= 0).float()
+        return torch.sum((lse - gold) * valid), torch.sum(valid)
+
+    remat = n > 1 and torch.is_grad_enabled()
+    tot = cnt = 0.0
+    for i in range(n):
+        h_c, y_c = hidden[:, i * C:(i + 1) * C], labels[:, i * C:(i + 1) * C]
+        l, c = (checkpoint(piece, h_c, y_c, use_reentrant=False) if remat
+                else piece(h_c, y_c))
+        tot, cnt = tot + l, cnt + c
+    return tot / torch.clamp_min(cnt, 1.0)

@@ -1,25 +1,30 @@
-"""Model assembly on torch: block stacks → Model (init / prefill /
-decode), the JAX package's ``src/repro/models/model_api.py`` for the
-families that are ported.
+"""Model assembly on torch: block stacks → Model (init / loss / prefill /
+decode), the JAX package's ``src/repro/models/model_api.py``.
 
 Params are a plain dict::
 
     {"embed": {"table", "head"[, "pos"]}, "final_norm": {"scale"[, "bias"]},
-     "layers": [one block's dict per layer, in the plan's order]}
+     "layers": [one block's dict per layer, in the plan's order]
+     [, "enc_layers": [...], "enc_norm": {...}, "enc_pos": (enc_seq, d)]}
 
-with every tensor in the compute dtype (``cfg.dtype``), but for the
-leaves a block names in ``FLOAT32`` (read in float32 by the reference).
-The reference stacks each group pattern's layers on a leading axis for
-``lax.scan``; eager torch walks a flat list, groups in order and each
-group's pattern in order (:func:`layer_kinds`;
-:func:`repro_torch.models.convert.params_from_jax` flattens the stacked
-tree the same way).
+(the last three for the audio family's encoder), every tensor in one
+dtype: the compute dtype (``cfg.dtype``) for serving, float32 master
+weights for training (:meth:`Model.init`'s ``dtype``), but for the
+leaves a block names in ``FLOAT32`` (read in float32 by the reference),
+which stay float32.  The reference keeps ``param_dtype`` float32 and
+casts at every use; the layers here cast at every use too, so both
+holdings run the same arithmetic.  The reference stacks each group
+pattern's layers on a leading axis for ``lax.scan``; eager torch walks a
+flat list, groups in order and each group's pattern in order
+(:func:`layer_kinds`; :func:`repro_torch.models.convert.params_from_jax`
+flattens the stacked tree the same way).
 
-Families → stack plans (the ported ones):
+Families → stack plans:
   dense / vlm      [("dense",) × L]
+  moe              [("moe",) × L]
+  audio (whisper)  encoder [("enc",) × L_enc] + decoder [("cross",) × L]
   ssm (xlstm)      [("mlstm","slstm") × L/2]
   hybrid (rg)      [("rec","rec","attn") × 8, ("rec","rec") × 1]
-MoE and audio raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -28,17 +33,20 @@ import dataclasses
 from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.tree import leaves_with_paths
 
 from . import layers as L
-from .blocks import DenseLayer
+from .blocks import CrossLayer, DenseLayer, EncoderLayer, MoELayer
 from .recurrent import MLSTMLayer, RGLRULayer, SLSTMLayer
-
-_NOT_PORTED = ("moe", "audio")
 
 BLOCKS = {
     "dense": DenseLayer,
+    "moe": MoELayer,
+    "enc": EncoderLayer,
+    "cross": CrossLayer,
     "mlstm": MLSTMLayer,
     "slstm": SLSTMLayer,
     "rec": RGLRULayer,
@@ -49,12 +57,12 @@ BLOCKS = {
 def stack_plan(cfg: ArchConfig) -> List[Tuple[Tuple[str, ...], int]]:
     if cfg.family in ("dense", "vlm"):
         pattern: Tuple[str, ...] = ("dense",)
+    elif cfg.family == "moe":
+        pattern = ("moe",)
+    elif cfg.family == "audio":
+        pattern = ("cross",)
     elif cfg.family in ("ssm", "hybrid"):
         pattern = cfg.block_pattern
-    elif cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported to repro_torch yet: "
-            f"dense, vlm, ssm and hybrid are")
     else:
         raise ValueError(f"unknown family {cfg.family}")
     k = len(pattern)
@@ -66,7 +74,8 @@ def stack_plan(cfg: ArchConfig) -> List[Tuple[Tuple[str, ...], int]]:
 
 
 def layer_kinds(cfg: ArchConfig) -> List[str]:
-    """The block kind of every layer, in the order the model runs them."""
+    """The block kind of every (decoder) layer, in the order the model
+    runs them."""
     return [kind for pattern, groups in stack_plan(cfg)
             for _ in range(groups) for kind in pattern]
 
@@ -79,28 +88,46 @@ def _cast(tree, dtype, keep=()):
             for k, v in tree.items()}
 
 
+def _apply_layer(block, cfg, params, x, *, remat, **kw):
+    """One layer; in train mode with ``remat`` and grad on, its
+    activations are recomputed in the backward pass rather than kept
+    (the reference's ``jax.checkpoint`` of a group)."""
+    if remat and kw["mode"] == "train" and torch.is_grad_enabled():
+        return checkpoint(lambda h: block.apply(cfg, params, h, **kw), x,
+                          use_reentrant=False)
+    return block.apply(cfg, params, x, **kw)
+
+
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ArchConfig
 
     # ---- init ----------------------------------------------------------------
-    def init(self, generator: torch.Generator) -> Dict[str, Any]:
+    def init(self, generator: torch.Generator, dtype=None) -> Dict[str, Any]:
         """Random weights from ``generator``, on its device: uniform in
         ±1/√fan_in for every matrix, the embedding table scaled by
         0.02·√d, norm scales 1 (the reference's distributions, not its
-        bits).  Each tensor is made in ``param_dtype`` and cast to the
-        compute dtype at once, table by table and layer by layer, so a
+        bits).  Each tensor is made in ``param_dtype`` and cast to
+        ``dtype`` (default the compute dtype; float32 for training's
+        master weights) at once, table by table and layer by layer, so a
         full-width init holds one of them in float32 at a time."""
         cfg = self.cfg
-        kinds = layer_kinds(cfg)
-        dt = L.cdtype(cfg)
+        dt = L.cdtype(cfg) if dtype is None else L.torch_dtype(dtype)
         params: Dict[str, Any] = {
             "embed": L.embed_init(cfg, generator, dt),
             "final_norm": _cast(L.norm_init(cfg, generator), dt),
         }
         params["layers"] = [_cast(BLOCKS[k].init(cfg, generator), dt,
                                   BLOCKS[k].FLOAT32)
-                            for k in kinds]
+                            for k in layer_kinds(cfg)]
+        if cfg.family == "audio":
+            params["enc_layers"] = [
+                _cast(EncoderLayer.init(cfg, generator), dt)
+                for _ in range(cfg.n_enc_layers)]
+            params["enc_norm"] = _cast(L.norm_init(cfg, generator), dt)
+            params["enc_pos"] = (L.dense_init(generator, (cfg.enc_seq,
+                                                          cfg.d_model))
+                                 * 0.02).to(dt)
         return params
 
     # ---- caches ----------------------------------------------------------------
@@ -123,24 +150,62 @@ class Model:
             x = torch.cat([patches, x], dim=1)
         return x
 
-    def _backbone(self, params, x, *, mode, caches, pos, extras):
+    def _encode(self, params, frames, *, remat: bool = True):
+        """The audio encoder over frame embeddings (B, enc_seq, d)."""
+        cfg = self.cfg
+        x = frames.to(L.cdtype(cfg))
+        x = x + params["enc_pos"].to(x.dtype)[None]
+        for p in params["enc_layers"]:
+            x, _ = _apply_layer(EncoderLayer, cfg, p, x, remat=remat,
+                                mode="train", cache=None, pos=None,
+                                extras=None)
+        return L.norm_apply(cfg, params["enc_norm"], x)
+
+    def _backbone(self, params, x, *, mode, caches, pos, extras,
+                  remat: bool = False):
         new_caches = []
         for li, kind in enumerate(layer_kinds(self.cfg)):
             c = caches[li] if caches is not None else None
-            x, nc = BLOCKS[kind].apply(self.cfg, params["layers"][li], x,
-                                       mode=mode, cache=c, pos=pos,
-                                       extras=extras)
+            x, nc = _apply_layer(BLOCKS[kind], self.cfg, params["layers"][li],
+                                 x, remat=remat, mode=mode, cache=c, pos=pos,
+                                 extras=extras)
             new_caches.append(nc)
         return L.norm_apply(self.cfg, params["final_norm"], x), new_caches
+
+    def loss(self, params, batch, *, remat: bool = True):
+        """Mean next-token cross-entropy of ``batch`` (``tokens``,
+        ``labels`` (B, S) with -100 ignored; plus ``patch_embeds`` for
+        the VLM family, whose loss covers the text positions only, or
+        ``frames`` (B, enc_seq, d) for the audio family).  ``remat``
+        recomputes each layer's activations in the backward pass."""
+        cfg = self.cfg
+        x = self._embed(params, batch)
+        extras = None
+        if cfg.family == "audio":
+            extras = {"enc": self._encode(params, batch["frames"],
+                                          remat=remat)}
+        x, _ = self._backbone(params, x, mode="train", caches=None, pos=None,
+                              extras=extras, remat=remat)
+        labels = batch["labels"]
+        if cfg.family == "vlm":  # loss only over text positions
+            x = x[:, -labels.shape[1]:]
+        return L.xent_loss(cfg, params["embed"], x, labels)
 
     def prefill(self, params, batch, max_len: int):
         """Run the full prompt, returning (last-token logits, caches).
         ``batch``: ``{"tokens": (B, S) int}`` (plus ``"patch_embeds"``
-        (B, n_patches, d) for the VLM family, a prefix of the sequence)."""
+        (B, n_patches, d) for the VLM family, a prefix of the sequence,
+        or ``"frames"`` (B, enc_seq, d) for the audio family, which the
+        encoder reads and every decoder layer's cache keeps as keys and
+        values)."""
+        cfg = self.cfg
         x = self._embed(params, batch)
+        extras = {"max_len": max_len}
+        if cfg.family == "audio":
+            extras["enc"] = self._encode(params, batch["frames"])
         x, caches = self._backbone(params, x, mode="prefill", caches=None,
-                                   pos=None, extras={"max_len": max_len})
-        logits = L.lm_logits(self.cfg, params["embed"], x[:, -1:])
+                                   pos=None, extras=extras)
+        logits = L.lm_logits(cfg, params["embed"], x[:, -1:])
         return logits[:, 0], caches
 
     def decode_step(self, params, caches, token, pos):
@@ -153,6 +218,35 @@ class Model:
                                    pos=pos, extras=None)
         logits = L.lm_logits(cfg, params["embed"], x)
         return logits[:, 0], caches
+
+    # ---- accounting -----------------------------------------------------------
+    def param_shapes(self) -> Dict[str, Any]:
+        """The params' tree with shape-only tensors (no storage): the
+        reference's ``jax.eval_shape(self.init, ...)``."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        gen = torch.Generator()
+        with FakeTensorMode():
+            return self.init(gen)
+
+    def param_counts(self) -> Dict[str, float]:
+        """total / active / embedding parameter counts (analytic, from
+        shape-only init; the reference's rule: embeddings are the table,
+        head and positions, and an expert matrix counts top_k/n_experts
+        of itself as active)."""
+        total = active = embed = 0.0
+        cfg = self.cfg
+        k_over_e = cfg.top_k / cfg.n_experts if cfg.is_moe else 1.0
+        for path, leaf in leaves_with_paths(self.param_shapes()):
+            n = float(leaf.numel())
+            total += n
+            if any(k in ("table", "head", "pos", "enc_pos") for k in path):
+                embed += n
+                continue
+            is_expert = "moe" in path and any(
+                k in ("w_in", "w_gate", "w_out") for k in path)
+            active += n * (k_over_e if is_expert else 1.0)
+        return {"total": total, "active": active, "embed": embed}
 
 
 def build_model(cfg: ArchConfig) -> Model:

@@ -21,6 +21,11 @@ Where the reference's prefill runs its own chunkwise einsums and
   :func:`repro_torch.kernels.rg_lru.ops.rg_lru_scan` from h = 0, whose
   ``h_final`` is the prefill cache's h; decode is the one-step update.
 
+Train mode is prefill without the cache.  It reaches the same kernel
+calls: on the CPU their plain versions, which are differentiable torch;
+on the card under grad the wrappers raise (they have no backward,
+ROADMAP A12), so the recurrent families train on the CPU only for now.
+
 Every layer casts to float32 where the reference does, and the kernels
 get contiguous float32.  The leaves a block names in ``FLOAT32`` are ones
 the reference reads in float32 at every use (the sLSTM's recurrent
@@ -170,17 +175,21 @@ class MLSTMLayer:
                 torch.abs(torch.einsum("zha,zha->zh", q1, nv)), 1.0)
             h = (num / den[..., None]).reshape(B, 1, M).to(dt)
             new_cache = {"C": C, "n": nv, "conv": new_buf}
-        elif mode == "prefill":
+        elif mode in ("prefill", "train"):
             q, k, v, i, lf, new_buf = MLSTMLayer._qkv_gates(
                 cfg, params, xm, None)
-            h, C, n = mlstm_ops.mlstm_chunkwise(
+            out = mlstm_ops.mlstm_chunkwise(
                 *_f32(q, k, v, i, lf), chunk=MLSTMLayer.prefill_chunk(cfg, S),
-                return_state=True)
+                return_state=mode == "prefill")
+            if mode == "prefill":
+                h, C, n = out
+                new_cache = {"C": C, "n": n, "conv": new_buf}
+            else:
+                h, new_cache = out, None
             h = h.reshape(B, S, M).to(dt)
-            new_cache = {"C": C, "n": n, "conv": new_buf}
         else:
-            raise ValueError(f"MLSTMLayer mode {mode!r} is not ported: "
-                             f"prefill or decode")
+            raise ValueError(f"MLSTMLayer mode {mode!r}: train, prefill or "
+                             f"decode")
         h = L.rms_norm(h, params["out_scale"])
         h = h * F.silu(z)
         out = h @ params["w_down"].to(dt)
@@ -269,11 +278,11 @@ class SLSTMLayer:
         if mode == "decode":
             c, n, h = (cache[k].reshape(B, H, hd).transpose(0, 1)
                        for k in ("c", "n", "h"))
-        elif mode == "prefill":
+        elif mode in ("prefill", "train"):
             c = n = h = x.new_zeros((H, B, hd), dtype=torch.float32)
         else:
-            raise ValueError(f"SLSTMLayer mode {mode!r} is not ported: "
-                             f"prefill or decode")
+            raise ValueError(f"SLSTMLayer mode {mode!r}: train, prefill or "
+                             f"decode")
         r, bias = SLSTMLayer._recurrence(cfg, params)
         hs = []
         for t in range(S):
@@ -287,7 +296,7 @@ class SLSTMLayer:
         up = h_seq @ params["w_up"].to(dt)
         gate, val = up[..., :f], up[..., f:]
         out = (L._gelu(gate) * val) @ params["w_down"].to(dt)
-        return x + out, state
+        return x + out, (None if mode == "train" else state)
 
 
 # ---------------------------------------------------------------------------
@@ -361,16 +370,18 @@ class RGLRULayer:
                                                     cache["conv"])
             h_new = a[:, 0] * cache["h"] + b[:, 0]  # (B,D)
             hs = h_new[:, None]
-        elif mode == "prefill":
+        elif mode in ("prefill", "train"):
             a, b, new_buf = RGLRULayer._scan_inputs(cfg, params, hin, None)
             a, b = _f32(a, b)
             hs, h_new = rg_lru_ops.rg_lru_scan(
                 a, b, a.new_zeros((a.shape[0], a.shape[2])))
         else:
-            raise ValueError(f"RGLRULayer mode {mode!r} is not ported: "
-                             f"prefill or decode")
+            raise ValueError(f"RGLRULayer mode {mode!r}: train, prefill or "
+                             f"decode")
         mix = (hs.to(dt) * gate) @ params["w_o"].to(dt)
         x = x + mix
         h2 = L.norm_apply(cfg, params["norm2"], x)
         x = x + L.mlp_apply(cfg, params["mlp"], h2)
+        if mode == "train":
+            return x, None
         return x, {"h": h_new, "conv": new_buf}

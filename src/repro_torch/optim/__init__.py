@@ -1,0 +1,8 @@
+from .adamw import AdamWConfig, adamw_init, adamw_update, global_norm
+from .compression import CompressionState, compress_grads, decompress_grads
+from .schedule import cosine_schedule
+
+__all__ = [
+    "AdamWConfig", "adamw_init", "adamw_update", "global_norm",
+    "cosine_schedule", "compress_grads", "decompress_grads", "CompressionState",
+]

@@ -380,8 +380,13 @@ class SessionServeEngine:
         return self.session.qos_report()
 
     def close(self) -> None:
-        if self._owns_session and not self.session.closed:
+        """Close the session this engine made for itself, and its
+        runtime's worker pool: a worker's frame keeps the last stream it
+        served, and through it this engine and the model's weights, until
+        the pool is shut down.  A session passed in stays open."""
+        if self._owns_session:
             self.session.close()
+            self.session.runtime.close()
 
     def __enter__(self) -> "SessionServeEngine":
         return self

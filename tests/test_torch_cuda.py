@@ -454,3 +454,52 @@ def test_paged_attention_lengths_at_split_edges(cuda, dtype):
     torch.testing.assert_close(
         got.float(), PA.paged_attention_plain(q, kp, vp, bt, ln).float(),
         rtol=tol, atol=tol)
+
+
+def _grad_cases(dev):
+    """Each kernel wrapper with small valid CUDA inputs, the float ones
+    requiring grad."""
+    f32 = dict(device=dev, dtype=torch.float32)
+    c64 = dict(device=dev, dtype=torch.complex64)
+
+    def leaf(*shape, **kw):
+        return torch.randn(*shape, **kw).requires_grad_(True)
+
+    B, S, H, m = 1, 16, 2, 64
+    table = torch.zeros((2, 2), dtype=torch.int32, device=dev)
+    return {
+        "fft": lambda: fft_ops.fft(leaf(2, 64, **c64)),
+        "zip_mul": lambda: zip_ops.zip_mul(leaf(2, 64, **c64),
+                                           torch.randn(2, 64, **c64)),
+        "flash_attention": lambda: flash_ops.flash_attention(
+            leaf(1, 64, 2, 64, **f32), torch.randn(1, 64, 2, 64, **f32),
+            torch.randn(1, 64, 2, 64, **f32)),
+        "mlstm_chunkwise": lambda: mlstm_ops.mlstm_chunkwise(
+            leaf(B, S, H, m, **f32), torch.randn(B, S, H, m, **f32),
+            torch.randn(B, S, H, m, **f32), torch.rand(B, S, H, **f32),
+            -torch.rand(B, S, H, **f32), chunk=8),
+        "rg_lru_scan": lambda: rg_ops.rg_lru_scan(
+            torch.rand(1, 8, 128, **f32), leaf(1, 8, 128, **f32),
+            torch.zeros(1, 128, **f32)),
+        "paged_attention": lambda: pa_ops.paged_attention(
+            leaf(2, 4, 64, **f32), torch.randn(4, 16, 2, 64, **f32),
+            torch.randn(4, 16, 2, 64, **f32), table,
+            torch.tensor([5, 0], dtype=torch.int32, device=dev)),
+    }
+
+
+@pytest.mark.parametrize("name", ["fft", "zip_mul", "flash_attention",
+                                  "mlstm_chunkwise", "rg_lru_scan",
+                                  "paged_attention"])
+def test_wrappers_refuse_grad_on_cuda(cuda, name):
+    """A CUDA input that requires grad, with grad mode on, raises (the
+    kernels have no backward, ROADMAP A12) instead of returning an output
+    cut from the graph; under ``torch.no_grad()`` the kernel runs."""
+    call = _grad_cases(cuda)[name]
+    with pytest.raises(NotImplementedError, match=f"{name}.*no backward"):
+        call()
+    with torch.no_grad():
+        out = call()
+    torch.cuda.synchronize()
+    first = out[0] if isinstance(out, tuple) else out
+    assert first.grad_fn is None and first.is_cuda

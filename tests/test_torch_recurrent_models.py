@@ -11,8 +11,8 @@ and bfloat16 (the multi-stack plan too), the ports of
 ``tests/test_models_smoke.py``'s decode and prefill↔decode cases, the
 chunk the kernel is clamped to, the mLSTM op's final state, the stack
 plans, the held dtypes and the families with JAX blocked.
-``test_models_smoke.py``'s loss and train-step cases wait for training
-(ROADMAP A10).
+``test_models_smoke.py``'s loss and train-step cases, for every family,
+are in ``tests/test_torch_models_smoke.py``.
 
 Tolerances:
 
@@ -328,10 +328,6 @@ def test_prefill_decode_consistency(arch_setup):
 @pytest.mark.parametrize("arch", jbase.ARCH_IDS)
 def test_stack_plan_matches_reference(arch):
     cfg = get_config(arch)
-    if cfg.family in ("moe", "audio"):
-        with pytest.raises(NotImplementedError):
-            stack_plan(cfg)
-        return
     assert stack_plan(cfg) == jstack_plan(jget_config(arch))
     assert stack_plan(cfg.smoke()) == jstack_plan(jget_config(arch).smoke())
     assert len(layer_kinds(cfg)) == cfg.n_layers

@@ -74,11 +74,15 @@ def test_get_config_accepts_dashed_names():
 
 
 def test_unported_families_raise():
-    """MoE and audio are not ported; the recurrent families (ssm,
-    hybrid) are, with the reference's plans."""
-    for arch in ("granite_moe_3b_a800m", "whisper_large_v3"):
-        with pytest.raises(NotImplementedError):
-            stack_plan(get_config(arch))
+    """Every family is ported now, with the reference's plans: MoE and
+    audio (the encoder outside the plan, as in the reference) beside the
+    dense, VLM and recurrent ones."""
+    assert stack_plan(get_config("granite_moe_3b_a800m")) == [(("moe",), 32)]
+    assert stack_plan(get_config("whisper_large_v3")) == [(("cross",), 32)]
+    for arch in ("granite_moe_3b_a800m", "qwen3_moe_235b_a22b",
+                 "whisper_large_v3"):
+        assert stack_plan(get_config(arch)) == \
+            jstack_plan(jget_config(arch))
     assert stack_plan(get_config("internvl2_26b")) == [(("dense",), 48)]
     assert stack_plan(get_config("xlstm_350m")) == [(("mlstm", "slstm"), 12)]
     assert stack_plan(get_config("recurrentgemma_2b")) == [
@@ -329,6 +333,34 @@ def test_session_engine_matches_jax_multi_tenant(setup):
         n_decode = sum(name.startswith("llm_decode") for name, _ in log)
         n_prefill = sum(len(p) - 1 for p, _ in work if len(p) > 1)
         assert eng.decode_steps == n_decode + n_prefill
+
+
+def test_close_releases_an_owned_sessions_workers(setup):
+    """An engine that made its own session shuts that session's worker
+    pool on ``close()``: no worker thread is left, and nothing keeps the
+    engine (and through it the model's weights) alive."""
+    import gc
+    import weakref
+
+    cfg, _, params, *_ = setup
+    eng = SessionServeEngine(cfg, params, device=CPU, max_batch=2,
+                             page_size=8, num_pages=32, max_pages_per_seq=4,
+                             pages_per_group=8)
+    req = eng.submit([1, 2, 3], 2)
+    eng.run()
+    assert req.done
+    pool = eng.session.runtime._worker_pool
+    threads = list(pool._threads)
+    assert threads and all(t.is_alive() for t in threads)
+    eng.close()
+    for t in threads:
+        t.join(timeout=10)
+    assert pool.closed and not any(t.is_alive() for t in threads)
+    assert eng.session.closed and eng.session.runtime._worker_pool is None
+    alive = weakref.ref(eng)
+    del eng, req
+    gc.collect()
+    assert alive() is None
 
 
 def test_spill_under_pressure_matches_jax(setup):
