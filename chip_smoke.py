@@ -118,7 +118,25 @@ Phases, each of which raises (exit code 1) on a failed check:
    parameter, and a kernel wrapper given an input that requires grad
    raising; (a)-(c) launch no kernel; (d) llama3-8b ``smoke()`` in
    float32 trains 3 steps, checkpoints, restores bit for bit and serves
-   one request through ``ServeEngine`` (the paged kernel).
+   one request through ``ServeEngine`` (the paged kernel);
+14. recurrent training — (a) the mLSTM and RG-LRU backward kernels
+   (``csrc/mlstm_bwd.cu``, ``csrc/rg_lru_bwd.cu``) through their wrappers
+   against ``torch.autograd.grad`` through the plain forwards, float32:
+   the mLSTM at xlstm-350m width ((1, 4096, 4, 512), chunks 64 and 128,
+   and S 1024 and 256, the training path's) and small shapes (m 40, one
+   chunk, seeded final state, log_f near 0 and strongly negative, |den|
+   on both sides of 1), each gradient within 1e-3 (full width) or 1e-4
+   of its max; the RG-LRU at (1, 4096, 2560), (2, 3072, 2560), D 200 with
+   S 64 and 65, nonzero h0 and dh_final, bit-equal to its plain backward
+   and across every ``block_lanes``, within 1e-5 of autograd's max; h the
+   same bits with and without grad; (b) their times beside the bound and
+   the plain backward's (CUDA events, profiler); (c) the smoke() loss
+   gradients of xlstm-350m and recurrentgemma-2b card vs CPU within 1e-4
+   of each leaf's max; (d) recurrentgemma-2b (1 x 4096) and xlstm-350m (1
+   x 256, the sLSTM's host loop) trained at full width and depth
+   through ``Trainer`` (3 steps each, phase 13's checks), each kernel
+   launched exactly twice forward (the step, remat's recompute) and once
+   backward per layer of its kind and step.
 
 Phases 3 and 4 also hold the paged-attention kernel against its plain
 version (the reference's sweep, rows of length 0, repeated pages, and
@@ -135,6 +153,7 @@ exits nonzero before printing any result.
 from __future__ import annotations
 
 import collections
+import itertools
 import json
 import math
 import os
@@ -1355,10 +1374,19 @@ def kernel_modules():
 def reset_counts():
     for mod in kernel_modules().values():
         mod.launches = 0
+        if hasattr(mod, "backward_launches"):
+            mod.backward_launches = 0
 
 
 def read_counts():
     return {name: mod.launches for name, mod in kernel_modules().items()}
+
+
+def read_backward_counts():
+    """The backward kernels' launches (the mLSTM's and the RG-LRU's)."""
+    return {name: mod.backward_launches
+            for name, mod in kernel_modules().items()
+            if hasattr(mod, "backward_launches")}
 
 
 def _tuned_plain(op, ts):
@@ -2399,15 +2427,21 @@ AUDIO_SERVE = ("whisper_large_v3", 2, 64, 16)
 MOE_CHECK_LAYER, MOE_TOL = 1, 1e-4
 #: (c): train_4k's sequence, the batch cut from 256 to 1 for one card
 TRAIN = dict(arch="granite_moe_3b_a800m", batch=1, seq=4096, steps=3)
-#: the archs whose smoke() loss gradient is held card against CPU in
-#: float32, each leaf within TRAIN_GRAD_TOL * max|g| (the MoE and audio
-#: blocks' backward; the loss's chunked recompute; per-layer remat)
+#: the archs whose smoke() loss gradient phase 13 holds card against CPU
+#: in float32, each leaf within TRAIN_GRAD_TOL * max|g| (the MoE and
+#: audio blocks' backward; the loss's chunked recompute; per-layer remat);
+#: phase 14 holds RECURRENT_TRAIN_ARCHS so, through the mLSTM and RG-LRU
+#: backward kernels
 TRAIN_GRAD_ARCHS = ("granite_moe_3b_a800m", "whisper_large_v3")
+RECURRENT_TRAIN_ARCHS = ("xlstm_350m", "recurrentgemma_2b")
 TRAIN_GRAD_TOL = 1e-4
 #: bytes a parameter while training: float32 weights, gradients, m, v
 TRAIN_BYTES_PER_PARAM = 16
 #: GiB an earlier phase may leave allocated when training starts
 TRAIN_LEFT_GIB = 1.0
+#: the Trainer's step that runs under the profiler (a warm one, not the
+#: last, whose wall gives tokens/s)
+PROFILED_STEP = 2
 #: phase 13's profiles split device time by these parts of kernel names
 #: (first match): float32 products (attention's einsums), softmax, sorts,
 #: gathers and scatters, dtype casts and copies, other elementwise,
@@ -2603,10 +2637,10 @@ def _prints(tree):
                         for p in leaves(tree)])
 
 
-def _train_grad_check(dev):
+def _train_grad_check(dev, archs):
     """The gradient of ``Model.loss`` (remat on) on the card against the
-    CPU's, from the same float32 weights and batch, for each arch in
-    TRAIN_GRAD_ARCHS at ``smoke()`` size: the loss within TRAIN_GRAD_TOL
+    CPU's, from the same float32 weights and batch, for each of ``archs``
+    at ``smoke()`` size: the loss within TRAIN_GRAD_TOL
     relative, each leaf's gradient within TRAIN_GRAD_TOL * max|g| of the
     CPU's.  Returns the largest error relative to its leaf's max|g|."""
     import dataclasses
@@ -2617,7 +2651,7 @@ def _train_grad_check(dev):
     from repro_torch.tree import leaves, leaves_with_paths, map_tree
 
     out = {}
-    for arch in TRAIN_GRAD_ARCHS:
+    for arch in archs:
         cfg = dataclasses.replace(get_config(arch).smoke(), dtype="float32")
         model = build_model(cfg)
         params = model.init(torch.Generator().manual_seed(0))
@@ -2649,28 +2683,47 @@ def _train_grad_check(dev):
     return out
 
 
-def _train_full_width(dev, out_dir: Path):
-    """granite-moe-3b-a800m at full width and depth through the port's
+def _train_full_width(dev, out_dir: Path, spec=TRAIN, own=P13_KINDS):
+    """``spec["arch"]`` at full width and depth through the port's
     ``Trainer`` on ``cuda:0``: float32 master weights, bf16 compute, AdamW,
-    per-layer remat, batch 1 x 4096, three steps, no checkpoint."""
+    per-layer remat, ``spec``'s batch x seq and steps, no checkpoint.  The
+    record holds the kernel launches of the steps (forward, backward),
+    counted over ``Trainer.run``, and the device time of the Trainer's own
+    step PROFILED_STEP (its wall in ``sec_per_step`` includes the
+    tracing; tokens/s and the busy share are read off the last step)."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.mlstm import ops as mlstm_ops
     from repro_torch.models import build_model
     from repro_torch.train.loop import Trainer, TrainerConfig
 
-    cfg = get_config(TRAIN["arch"])
+    cfg = get_config(spec["arch"])
     n_params = build_model(cfg).param_counts()["total"]
     reckon_gib = n_params * TRAIN_BYTES_PER_PARAM / 2 ** 30
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    trainer = Trainer(cfg, TRAIN["batch"], TRAIN["seq"], TrainerConfig(
-        steps=TRAIN["steps"], ckpt_every=10 ** 9, log_every=1,
+    trainer = Trainer(cfg, spec["batch"], spec["seq"], TrainerConfig(
+        steps=spec["steps"], ckpt_every=10 ** 9, log_every=1,
         ckpt_dir=str(out_dir / "unused_ckpt")), device=dev)
     trainer.init_state()
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     before = _prints(trainer.params)
+    step_fn, calls, prof = trainer.step_fn, itertools.count(1), {}
+
+    def traced(*args):
+        if next(calls) != PROFILED_STEP:
+            return step_fn(*args)
+        out = []
+        prof["step"] = _profile_steps(lambda: out.append(step_fn(*args)), 1,
+                                      own=own)
+        # the profiler failed before the step ran: run it untraced
+        return out[0] if out else step_fn(*args)
+
+    trainer.step_fn = traced
+    fwd0, bwd0 = read_counts(), read_backward_counts()
     report = trainer.run()
+    launches = {"forward": {k: v - fwd0[k] for k, v in read_counts().items()},
+                "backward": {k: v - bwd0[k]
+                             for k, v in read_backward_counts().items()}}
     peak = torch.cuda.max_memory_allocated()
     # every leaf some step gave a nonzero gradient (its first moment is
     # not 0) moved
@@ -2690,7 +2743,7 @@ def _train_full_width(dev, out_dir: Path):
                     "nonzero_grad": int(nonzero.sum()),
                     "moved": int(moved.sum())}
     metrics = report["metrics"]
-    if [m["step"] for m in metrics] != list(range(1, TRAIN["steps"] + 1)):
+    if [m["step"] for m in metrics] != list(range(1, spec["steps"] + 1)):
         raise AssertionError(f"training logged steps "
                              f"{[m['step'] for m in metrics]}")
     for m in metrics:
@@ -2700,39 +2753,28 @@ def _train_full_width(dev, out_dir: Path):
     # one host->device copy per batch leaf (tokens, labels) and step, of
     # the reference's bytes (int32 (batch, seq))
     tr = report["transfers"]
-    want_copies = 2 * TRAIN["steps"]
-    want_bytes = want_copies * TRAIN["batch"] * TRAIN["seq"] * 4
+    want_copies = 2 * spec["steps"]
+    want_bytes = want_copies * spec["batch"] * spec["seq"] * 4
     if (tr["total_copies"], tr["total_bytes"]) != (want_copies, want_bytes) \
             or tr["by_pair"] != {"host:cpu->device:gpu0": want_copies}:
         raise AssertionError(f"training ledger {tr['by_pair']}, "
                              f"{tr['total_bytes']} bytes; want "
                              f"{want_copies} host->device copies of "
                              f"{want_bytes} bytes")
-    # a CUDA kernel wrapper given an input that requires grad raises
-    q = torch.zeros((1, 16, 2, 64), device=dev, requires_grad=True)
-    z = torch.zeros((1, 16, 2), device=dev)
-    try:
-        mlstm_ops.mlstm_chunkwise(q, q.detach(), q.detach(), z, z, chunk=8)
-    except NotImplementedError as e:
-        refused = str(e)
-    else:
-        raise AssertionError("mlstm_chunkwise returned an output under grad")
-    # where a step's device time goes: one more step, then the AdamW
-    # update alone (its gradients: the first moments, any float32 tree)
+    # the AdamW update alone (its gradients: the first moments, any
+    # float32 tree)
     from repro_torch.optim.adamw import AdamWConfig, adamw_update
 
-    batch = trainer._stage_batch(next(trainer.pipeline))
-    prof_step = _profile_steps(lambda: trainer.step_fn(
-        trainer.params, trainer.opt_state, batch), 1, own=P13_KINDS)
+    prof_step = prof.get("step")
     prof_adamw = _profile_steps(lambda: adamw_update(
         AdamWConfig(), trainer.opt_state["m"], trainer.opt_state,
-        trainer.params), 1, own=P13_KINDS)
+        trainer.params), 1, own=own)
     last = metrics[-1]["sec_per_step"]
-    rec = {"arch": TRAIN["arch"], "batch": TRAIN["batch"],
-           "seq": TRAIN["seq"], "steps": TRAIN["steps"],
+    rec = {"arch": spec["arch"], "batch": spec["batch"],
+           "seq": spec["seq"], "steps": spec["steps"],
            "params": n_params, "init_s": init_s,
            "sec_per_step": [m["sec_per_step"] for m in metrics],
-           "tokens_per_s_last_step": TRAIN["batch"] * TRAIN["seq"] / last,
+           "tokens_per_s_last_step": spec["batch"] * spec["seq"] / last,
            "loss": [m["loss"] for m in metrics],
            "grad_norm": [m["grad_norm"] for m in metrics],
            "update_check": update_check,
@@ -2740,7 +2782,8 @@ def _train_full_width(dev, out_dir: Path):
            "reckoned_state_gib": reckon_gib,
            "ledger": {k: tr[k] for k in ("total_copies", "total_bytes",
                                          "by_pair")},
-           "grad_refusal": refused,
+           "launches": launches,
+           "profiled_step": PROFILED_STEP,
            "step_busy_share": (None if prof_step is None else
                                prof_step["device_ms_per_step"] / 1e3 / last),
            "step_profile": prof_step, "adamw_profile": prof_adamw}
@@ -2818,6 +2861,8 @@ def phase_moe_audio_train(dev, out_dir: Path):
     Returns the records and the launches of the phase."""
     import gc
 
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
     out_dir.mkdir(parents=True, exist_ok=True)
     records = {}
     reset_counts()
@@ -2869,6 +2914,15 @@ def phase_moe_audio_train(dev, out_dir: Path):
     t1 = time.perf_counter()
     rec = _train_full_width(dev, out_dir)
     rec["phase_s"] = time.perf_counter() - t1
+    # a CUDA kernel wrapper with no backward, given an input that
+    # requires grad, raises
+    q = torch.zeros((1, 64, 2, 64), device=dev, requires_grad=True)
+    try:
+        flash_ops.flash_attention(q, q.detach(), q.detach())
+    except NotImplementedError as e:
+        rec["grad_refusal"] = str(e)
+    else:
+        raise AssertionError("flash_attention returned an output under grad")
     log(f"[train] {rec['arch']} full width, batch {rec['batch']} x "
         f"{rec['seq']}: " + json.dumps(
             {k: v for k, v in rec.items() if not k.endswith("_profile")}))
@@ -2882,12 +2936,12 @@ def phase_moe_audio_train(dev, out_dir: Path):
     records["train"] = rec
     gc.collect()
     torch.cuda.empty_cache()
-    records["train_grad_check"] = _train_grad_check(dev)
+    records["train_grad_check"] = _train_grad_check(dev, TRAIN_GRAD_ARCHS)
     log(f"[train] float32 smoke() loss gradients card vs CPU (each leaf "
         f"within {TRAIN_GRAD_TOL} * max|g|): "
         + json.dumps(records["train_grad_check"]))
     counts = read_counts()
-    if any(counts.values()):
+    if any(counts.values()) or any(read_backward_counts().values()):
         raise AssertionError(f"the MoE, audio and training paths launched "
                              f"kernels {counts}; they reach none")
     # (d) the lifecycle at smoke size
@@ -2899,6 +2953,309 @@ def phase_moe_audio_train(dev, out_dir: Path):
         raise AssertionError(f"phase 13 launches {counts}")
     records["serve_phases_s"] = serve_s
     return records, counts
+
+
+# --------------------------------------------- 14. recurrent training
+#: (a) the mLSTM backward kernel against autograd of mlstm_plain:
+#: (B, S, H, m, chunk) and what the inputs stress; float32 gradients
+#: within MLSTM_BWD_TOL[width] * max|g| each
+MLSTM_BWD_CASES = (
+    ((1, 4096, 4, 512, 64), {}),       # xlstm-350m width
+    ((1, 4096, 4, 512, 128), {}),
+    ((1, 1024, 4, 512, 128), {}),      # the training path's (d)
+    ((2, 48, 3, 40, 16), {}),          # m, S not multiples of 16 or 32
+    ((1, 64, 2, 64, 64), {}),          # one chunk
+    ((1, 256, 2, 64, 32), {"state": True}),  # seeds dC, dn
+    ((2, 96, 2, 48, 32), {"lf": 0.01}),      # log_f near 0
+    ((2, 96, 2, 48, 32), {"lf": 2.5}),       # log_f strongly negative
+    ((2, 96, 2, 48, 32), {"q": 16.0}),       # |den| mostly above 1
+)
+MLSTM_BWD_TOL = {"full": 1e-3, "small": 1e-4}
+#: the RG-LRU backward kernel: bit-equal to rg_lru_backward_plain and
+#: across block_lanes, within RG_LRU_BWD_TOL * max|g| of autograd of
+#: rg_lru_plain; nonzero h0 and dh_final
+RG_LRU_BWD_CASES = ((1, 4096, 2560), (2, 3072, 2560), (2, 64, 200),
+                    (2, 65, 200))
+RG_LRU_BWD_TOL = 1e-5
+#: (b) timed: the mLSTM forward + backward at xlstm-350m width and at the
+#: training path's shape; the RG-LRU backward at recurrentgemma-2b width
+MLSTM_BWD_TIMED = ((1, 4096, 4, 512, 64), (1, 1024, 4, 512, 128))
+RG_LRU_BWD_TIMED = (1, 4096, 2560)
+#: (d) full width and depth through Trainer, the batch cut from 256 to 1:
+#: recurrentgemma-2b on train_4k's 4096 tokens, xlstm-350m on 1024 (its
+#: sLSTM is a host loop over time, run twice forward and once backward a
+#: remat step: ~20 s a step at 1 x 1024 on the H100, PERF.md)
+RECURRENT_TRAIN = (dict(arch="recurrentgemma_2b", batch=1, seq=4096, steps=3),
+                   dict(arch="xlstm_350m", batch=1, seq=1024, steps=3))
+#: each recurrent arch's kernel and the layer kind that launches it
+RECURRENT_TRAIN_KERNEL = {"xlstm_350m": ("mlstm", "mlstm"),
+                          "recurrentgemma_2b": ("rg_lru", "rec")}
+#: a training step's device time split: each kernel's backward, then its
+#: forward, then phase 13's kinds
+P14_KINDS = ("mlstm_bwd", "rg_lru_bwd", "mlstm", "rg_lru") + P13_KINDS
+
+
+def mlstm_backward_work(B, S, H, m, c):
+    """(bytes, flops) of one mLSTM backward: q, k, v, h, dh, the gates
+    and den read once, the saved entering states once, dq, dk, dv, di and
+    dlog_f written once; per chunk and head the masked scores and dA
+    (2 triangles of depth m), the three intra products back (depth c, the
+    triangle), the state terms C_in dnum, dC v, dC^T k and the walk's dC
+    update (c m^2 each), all float32 multiply-adds; the bound counts each
+    product three times at the TF32 peak, as split TF32 (the forward's
+    scheme) would run it."""
+    tri = c * (c + 1) / 2
+    chunks = (S // c) * B * H
+    flops = (5 * 2 * tri * m + 4 * 2 * c * m * m) * chunks
+    nbytes = 4.0 * (8 * B * S * H * m + 6 * B * S * H
+                    + chunks * (m * m + m))
+    return nbytes, flops
+
+
+def _grad_err(got, want, tol, what):
+    """max |got - want| / max |want| over one gradient; raises past tol."""
+    top = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    if not (err <= tol * top):
+        raise AssertionError(f"{what}: max|err| {err:.3e} > {tol} * "
+                             f"max|g| {top:.4g}")
+    return err, err / top if top else err
+
+
+def _mlstm_bwd_check(inp, dims, opts):
+    """One case of MLSTM_BWD_CASES through the wrapper (the forward and
+    backward kernels) against ``torch.autograd.grad`` through
+    ``mlstm_plain`` called explicitly; h the same bits as a forward
+    without grad."""
+    from repro_torch.kernels.mlstm import mlstm as ML
+    from repro_torch.kernels.mlstm import ops as mlstm_ops
+
+    B, S, H, m, c = dims
+    q, k, v, i, lf = inp.mlstm(B, S, H, m)
+    if "q" in opts:
+        q = q * opts["q"]
+    if "lf" in opts:
+        lf = -inp.uniform(0.0, opts["lf"], B, S, H)
+    state = opts.get("state", False)
+    ins = (q, k, v, i, lf)
+    tol = MLSTM_BWD_TOL["full" if m >= 512 else "small"]
+    leaves = [t.clone().requires_grad_(True) for t in ins]
+    out = mlstm_ops.mlstm_chunkwise(*leaves, chunk=c, return_state=state)
+    outs = out if state else (out,)
+    seeds = tuple(inp.normal(*o.shape) for o in outs)
+    got = torch.autograd.grad(outs, leaves, seeds)
+    with torch.no_grad():
+        alone = ML.mlstm_kernel(*ins, chunk=c)
+    if not torch.equal(alone, outs[0]):
+        raise AssertionError(f"mLSTM {dims}: h under grad differs from h "
+                             f"without")
+    plain = [t.clone().requires_grad_(True) for t in ins]
+    ref = ML.mlstm_plain(*plain, chunk=c, return_state=state)
+    want = torch.autograd.grad(ref if state else (ref,), plain, seeds)
+    _, _, _, den = ML.mlstm_plain(*ins, chunk=c, save=True)
+    torch.cuda.synchronize()
+    errs = {n: _grad_err(g, w, tol, f"mLSTM backward {dims} {opts} d{n}")
+            for n, g, w in zip(("q", "k", "v", "i", "log_f"), got, want)}
+    return {"kernel": "mlstm", "shape": list(dims), **opts, "tol": tol,
+            "max_abs_err": max(e[0] for e in errs.values()),
+            "max_rel_err": {n: e[1] for n, e in errs.items()},
+            "den_above_1": (den.abs() > 1).float().mean().item()}
+
+
+def _rg_lru_bwd_check(inp, dims):
+    """One case of RG_LRU_BWD_CASES through the wrapper at every
+    ``block_lanes`` the clamp allows: bit-equal to
+    ``rg_lru_backward_plain`` on the forward's own h_seq and across
+    ``block_lanes``, and within RG_LRU_BWD_TOL of autograd through
+    ``rg_lru_plain``."""
+    from repro_torch.kernels.rg_lru import ops as rg_ops
+    from repro_torch.kernels.rg_lru import rg_lru as RL
+
+    B, S, D = dims
+    a, b, h0 = inp.rg_lru(B, S, D)
+    dhs, dhn = inp.normal(B, S, D), inp.normal(B, D)
+    dp = D + (-D) % RL.LANES
+    first = None
+    for lanes in [x for x in range(RL.LANES, dp + 1, RL.LANES)
+                  if dp % x == 0]:
+        leaves = [t.clone().requires_grad_(True) for t in (a, b, h0)]
+        hs, hn = rg_ops.rg_lru_scan(*leaves, block_lanes=lanes)
+        got = torch.autograd.grad((hs, hn), leaves, (dhs, dhn))
+        if first is None:
+            first = got
+            plain = RL.rg_lru_backward_plain(a, hs.detach(), h0, dhs, dhn)
+            if not all(torch.equal(x, y) for x, y in zip(got, plain)):
+                raise AssertionError(f"RG-LRU backward {dims}: not bit-equal "
+                                     f"to rg_lru_backward_plain")
+        elif not all(torch.equal(x, y) for x, y in zip(got, first)):
+            raise AssertionError(f"RG-LRU backward {dims}: block_lanes "
+                                 f"{lanes} differs from {RL.LANES}")
+    ref = [t.clone().requires_grad_(True) for t in (a, b, h0)]
+    want = torch.autograd.grad(RL.rg_lru_plain(*ref), ref, (dhs, dhn))
+    torch.cuda.synchronize()
+    errs = {n: _grad_err(g, w, RG_LRU_BWD_TOL,
+                         f"RG-LRU backward {dims} d{n}")
+            for n, g, w in zip(("a", "b", "h0"), first, want)}
+    return {"kernel": "rg_lru", "shape": list(dims), "bit_equal_plain": True,
+            "block_lanes_bit_identical": True,
+            "max_abs_err": max(e[0] for e in errs.values()),
+            "max_rel_err": {n: e[1] for n, e in errs.items()}}
+
+
+def _backward_timing(inp):
+    """(b): the mLSTM's forward + backward through the wrapper and its
+    backward kernel alone at MLSTM_BWD_TIMED, the RG-LRU's backward at
+    RG_LRU_BWD_TIMED: CUDA-event call time, device time summed over the
+    kernels of a call (profiler, ``_device_ms``: a trace that drops some
+    is taken again, then reported as not measured) and by kernel, the
+    plain backward's time and the bound."""
+    from repro_torch.kernels.mlstm import mlstm as ML
+    from repro_torch.kernels.mlstm import ops as mlstm_ops
+    from repro_torch.kernels.rg_lru import rg_lru as RL
+
+    out = []
+    for B, S, H, m, c in MLSTM_BWD_TIMED:
+        ins = inp.mlstm(B, S, H, m)
+        leaves = [t.clone().requires_grad_(True) for t in ins]
+        dh = inp.normal(B, S, H, m)
+        with torch.no_grad():
+            h, c_in, n_in, den = ML.mlstm_kernel(*ins, chunk=c, save=True)
+
+        def both():
+            return torch.autograd.grad(
+                mlstm_ops.mlstm_chunkwise(*leaves, chunk=c), leaves, dh)
+
+        def bwd():
+            return ML.mlstm_backward_kernel(*ins, h, c_in, n_in, den, dh,
+                                            chunk=c)
+
+        nbytes, flops = mlstm_backward_work(B, S, H, m, c)
+        fb, fp, _ = mlstm_work(B, S, H, m, c)
+        bound_ms, bound_by = _bound(nbytes, 3 * flops, PEAK_TF32_PER_S)
+        fwd_bound = _bound(fb, 3 * fp, PEAK_TF32_PER_S)[0]
+        # six kernels (no per-chunk update with one chunk), two forward
+        per_call = 6 if S > c else 5
+        out.append({
+            "kernel": "mlstm_backward", "shape": [B, S, H, m, c],
+            "kernel_ms": _time_ms(bwd, 5, warmup=2),
+            "kernel_device_ms": _device_ms(bwd, "mlstm_bwd", iters=5,
+                                           per_call=per_call),
+            "device_kernels_per_call": per_call,
+            "device_ms_by_kernel": _device_ms_by_kernel(bwd, iters=3),
+            "fwd_bwd_ms": _time_ms(both, 3, warmup=1),
+            "fwd_bwd_device_ms": _device_ms(both, "mlstm", iters=3,
+                                            per_call=per_call + 2),
+            "plain_ms": _time_ms(lambda: ML.mlstm_backward_plain(
+                *ins, h, c_in, n_in, den, dh, chunk=c), 2, warmup=1),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "fwd_bwd_bound_ms": bound_ms + fwd_bound, "library_ms": None})
+        del ins, leaves, dh, h, c_in, n_in, den
+    B, S, D = RG_LRU_BWD_TIMED
+    a, b, h0 = inp.rg_lru(B, S, D)
+    dhs, dhn = inp.normal(B, S, D), inp.normal(B, D)
+    hs, _ = RL.rg_lru_kernel(a, b, h0)
+
+    def rbwd():
+        return RL.rg_lru_backward_kernel(a, hs, h0, dhs, dhn)
+
+    # a, h_seq and dh_seq read once, da and db written once (h0, dh_final
+    # and dh0 beside them); a multiply-add and a multiply an element
+    bound_ms, bound_by = _bound(4.0 * (5 * B * S * D + 3 * B * D),
+                                3.0 * B * S * D)
+    per_call = 2 if S > RL.CHUNK else 1  # the summaries, the scan
+    out.append({
+        "kernel": "rg_lru_backward", "shape": [B, S, D],
+        "kernel_ms": _time_ms(rbwd, 50, warmup=5),
+        "kernel_device_ms": _device_ms(rbwd, "rg_lru_bwd", iters=20,
+                                       per_call=per_call),
+        "device_kernels_per_call": per_call,
+        "device_ms_by_kernel": _device_ms_by_kernel(rbwd),
+        "plain_ms": _time_ms(lambda: RL.rg_lru_backward_plain(
+            a, hs, h0, dhs, dhn), 2, warmup=1),
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+    return out
+
+
+def phase_recurrent_train(dev, out_dir: Path):
+    """Phase 14: training of the recurrent families on the card.  (a) each
+    backward kernel against autograd of its plain version (float32, the
+    plain version called explicitly); (b) their times; (c) the smoke()
+    loss gradients of xlstm-350m and recurrentgemma-2b card against CPU;
+    (d) both trained at full width and depth through ``Trainer`` with the
+    launches of each kernel a step exact: forward twice a layer (the step
+    and remat's recompute), backward once.  Returns the records and the
+    training runs' launches (forward and backward, by kernel)."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_api import layer_kinds
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    records = {}
+    inp = Inputs(dev, 14)
+    t0 = time.perf_counter()
+    # (a)
+    records["mlstm_checks"] = [_mlstm_bwd_check(inp, d, o)
+                               for d, o in MLSTM_BWD_CASES]
+    shares = [r["den_above_1"] for r in records["mlstm_checks"]]
+    if not min(shares) < 0.5 < max(shares):
+        raise AssertionError(f"the mLSTM cases do not reach both sides of "
+                             f"|den| = 1: {shares}")
+    records["rg_lru_checks"] = [_rg_lru_bwd_check(inp, d)
+                                for d in RG_LRU_BWD_CASES]
+    for r in records["mlstm_checks"] + records["rg_lru_checks"]:
+        log("[rec-train] backward check " + json.dumps(r))
+    records["checks_s"] = time.perf_counter() - t0
+    # (b)
+    t0 = time.perf_counter()
+    records["timing"] = _backward_timing(inp)
+    for r in records["timing"]:
+        log("[rec-train] timing " + json.dumps(r))
+    records["timing_s"] = time.perf_counter() - t0
+    del inp
+    # (c)
+    t0 = time.perf_counter()
+    records["train_grad_check"] = _train_grad_check(dev,
+                                                    RECURRENT_TRAIN_ARCHS)
+    log(f"[rec-train] float32 smoke() loss gradients card vs CPU (each "
+        f"leaf within {TRAIN_GRAD_TOL} * max|g|): "
+        + json.dumps(records["train_grad_check"]))
+    records["grad_check_s"] = time.perf_counter() - t0
+    # (d)
+    train_counts = {"forward": collections.Counter(),
+                    "backward": collections.Counter()}
+    for spec in RECURRENT_TRAIN:
+        gc.collect()
+        torch.cuda.empty_cache()
+        left = torch.cuda.memory_allocated() / 2 ** 30
+        if left > TRAIN_LEFT_GIB:
+            raise AssertionError(f"{left:.3f} GiB still allocated before "
+                                 f"training {spec['arch']}")
+        t1 = time.perf_counter()
+        rec = _train_full_width(dev, out_dir, spec, own=P14_KINDS)
+        rec["phase_s"] = time.perf_counter() - t1
+        kernel, kind = RECURRENT_TRAIN_KERNEL[spec["arch"]]
+        layers = layer_kinds(get_config(spec["arch"])).count(kind)
+        want_fwd = {k: 0 for k in rec["launches"]["forward"]}
+        want_fwd[kernel] = 2 * layers * spec["steps"]
+        want_bwd = {k: 0 for k in rec["launches"]["backward"]}
+        want_bwd[kernel] = layers * spec["steps"]
+        if rec["launches"] != {"forward": want_fwd, "backward": want_bwd}:
+            raise AssertionError(
+                f"{spec['arch']} training launched {rec['launches']}, want "
+                f"forward {want_fwd} and backward {want_bwd} ({layers} "
+                f"layers x {spec['steps']} steps, remat)")
+        rec["kernel_layers"] = layers
+        train_counts["forward"].update(rec["launches"]["forward"])
+        train_counts["backward"].update(rec["launches"]["backward"])
+        log(f"[rec-train] {spec['arch']} full width, batch {spec['batch']} "
+            f"x {spec['seq']}: " + json.dumps(
+                {k: v for k, v in rec.items() if not k.endswith("_profile")}))
+        for what in ("step", "adamw"):
+            log(f"[rec-train] {spec['arch']} {what} profile: "
+                + json.dumps(rec[what + "_profile"]))
+        records[spec["arch"]] = rec
+    return records, {k: dict(v) for k, v in train_counts.items()}
 
 
 # ------------------------------------------------------------------ main
@@ -3005,6 +3362,15 @@ def main() -> int:
     log(f"[moe/audio/train] phase in {p13_s:.1f}s; kernel launches "
         f"{p13_counts}")
 
+    t0 = time.perf_counter()
+    rec_train, p14_counts = phase_recurrent_train(
+        dev, ROOT / "build" / "recurrent_train")
+    p14_s = time.perf_counter() - t0
+    log(f"[rec-train] phase in {p14_s:.1f}s; training launches "
+        f"{p14_counts}")
+    bwd_timing = {r["kernel"].split("_backward")[0]: r
+                  for r in rec_train["timing"]}
+
     def pick(kernel, key, value):
         return next(r for r in timing
                     if r["kernel"] == kernel and r.get(key) == value)
@@ -3076,6 +3442,26 @@ def main() -> int:
                     "bound_two_pass_twiddles_ms")}
                 for r in timing if r["kernel"] == "fft"]}
                if kname == "fft" else {}),
+            # mLSTM and RG-LRU: training's launches (phase 14: forward,
+            # twice a layer and step under remat, and backward) and the
+            # backward kernel's check and times
+            **({"train_launches": p14_counts["forward"][kname],
+                "backward_launches": p14_counts["backward"][kname],
+                "backward": {
+                    "source": f"src/repro_torch/csrc/{kname}_bwd.cu",
+                    "replaces": None,
+                    "max_abs_err": max(
+                        r["max_abs_err"] for r in rec_train["mlstm_checks"]
+                        + rec_train["rg_lru_checks"]
+                        if r["kernel"] == kname),
+                    **{k: bwd_timing[kname][k] for k in (
+                        "shape", "kernel_ms", "kernel_device_ms",
+                        "device_kernels_per_call", "plain_ms", "bound_ms",
+                        "bound_by", "library_ms")},
+                    **({k: bwd_timing[kname][k] for k in (
+                        "fwd_bwd_ms", "fwd_bwd_device_ms",
+                        "fwd_bwd_bound_ms")} if kname == "mlstm" else {})}}
+               if kname in ("mlstm", "rg_lru") else {}),
             # paged attention: the train -> checkpoint -> serve
             # lifecycle's launches (phase 13)
             **({"lifecycle_launches": p13_counts[kname]}
@@ -3102,6 +3488,11 @@ def main() -> int:
               if not kk.endswith("_profile")}
              if isinstance(v, dict) else v)
          for k, v in moe_audio.items()} | {"phase_s": p13_s}))
+    log("[rec-train] summary " + json.dumps(
+        {k: ({kk: vv for kk, vv in v.items()
+              if not kk.endswith("_profile")}
+             if isinstance(v, dict) else v)
+         for k, v in rec_train.items()} | {"phase_s": p14_s}))
     log(f"[done] {time.perf_counter() - t_start:.1f}s in all")
     log(smi)
     log(json.dumps({"kernels": kernels}))

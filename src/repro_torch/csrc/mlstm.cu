@@ -37,6 +37,8 @@
 //     and gate vectors) stream in by cp.async one step ahead, into rings
 //     of shared memory, 16 bytes a copy when rows are 16-byte aligned.
 //     Only C's columns are split, so no block needs another's result.
+//     Under grad (mlstm_bwd.cu), warps 4-7 also write each slice of the
+//     state entering a chunk as they read it, and column tile 0 den.
 //     When asked for the final state, the block applies the last chunk's
 //     last slice of the update after the loop (h never needs it) and
 //     writes its 16 columns of C, in the reference's orientation
@@ -358,7 +360,9 @@ mlstm_inter_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, const float* __restrict__ ni,
                    const float* __restrict__ vec, float* __restrict__ out,
                    float* __restrict__ c_out, float* __restrict__ n_out,
-                   int S, int H, int M, int c, float inv_sqrt_m) {
+                   float* __restrict__ c_in, float* __restrict__ n_in,
+                   float* __restrict__ den_out, int S, int H, int M, int c,
+                   float inv_sqrt_m) {
   extern __shared__ float smem[];
   const int cp = (c + 15) & ~15;
   const int nm = (M + kSlice - 1) / kSlice;  // slices of m
@@ -440,6 +444,8 @@ mlstm_inter_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const float num = __fadd_rn(av[u][e], __fmul_rn(ec, qc));
           const float den = __fadd_rn(vd[2 * kMaxChunk + t],
                                       __fmul_rn(ec, qnj[t]));
+          if (den_out != nullptr && blockIdx.x == 0 && col == 0)
+            den_out[(long long)bh * S + (long long)j * c + t] = den;
           out[rows + (long long)t * pos + e0 + col] =
               __fdiv_rn(num, fmaxf(fabsf(den), 1.f));
         }
@@ -524,6 +530,20 @@ mlstm_inter_kernel(const float* __restrict__ q, const float* __restrict__ k,
       if (z == 1)  // the buffer of chunk j + 1: emit(j - 1) has read it
         for (int t = tid - 128; t < kMaxChunk; t += 128)
           qn[((j + 1) & 1) * kMaxChunk + t] = 0.f;
+      if (z < nm && c_in != nullptr) {
+        // what the backward reads: slice z of the state entering chunk j
+        // (its last update landed at an earlier step), C[a, e] = ct[e][a]
+        float* cb = c_in + ((long long)bh * nc + j) * M * M;
+        for (int e = tid - 128; e < kSlice * kCols; e += 128) {
+          const int a = z * kSlice + e / kCols, col = e % kCols;
+          if (a < M && e0 + col < M)
+            cb[(long long)a * M + e0 + col] = ct[col * ldc + a];
+        }
+        if (blockIdx.x == 0 && tid - 128 < kSlice &&
+            z * kSlice + tid - 128 < M)
+          n_in[((long long)bh * nc + j) * M + z * kSlice + tid - 128] =
+              ns[z * kSlice + tid - 128];
+      }
       if (z < nm) {
         const float* qs = qst + (st & 1) * cp * kQ;
 #pragma unroll
@@ -600,19 +620,25 @@ mlstm_inter_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // q, k, v, out: (B, S, H, M) float32, q unscaled; ig, lf: (B, S, H) float32;
 // all contiguous, out distinct.  c_out (B, H, M, M) and n_out (B, H, M)
 // float32: the state after the last token, C[a, e] = sum w k_a v_e; both
-// null (not written) or neither.  work: a float32 workspace of
+// null (not written) or neither.  c_in (B, H, S / chunk, M, M), n_in
+// (B, H, S / chunk, M) and den (B, H, S) float32: what the backward
+// (mlstm_bwd.cu) reads, each chunk's entering state and den before its
+// clamp; all three null or none (out is the same bits either way).  work: a float32 workspace of
 // B S H M + B H (S / chunk) (3 chunk + 1) elements (A V, then the gate
 // vectors).  1 <= chunk <= 128 divides S; 1 <= M <= 1024.  Launches both
 // passes on `stream`; returns cudaGetLastError() (0 on success), or
 // cudaErrorInvalidValue for shapes it does not take.
 extern "C" int rimms_mlstm_f32(const void* q, const void* k, const void* v,
                                const void* ig, const void* lf, void* out,
-                               void* c_out, void* n_out, void* work, int B,
+                               void* c_out, void* n_out, void* c_in,
+                               void* n_in, void* den, void* work, int B,
                                int S, int H, int M, int chunk,
                                float inv_sqrt_m, void* stream) {
   if (B < 0 || S < 0 || H < 1 || M < 1 || M > 1024 || chunk < 1 ||
       chunk > kMaxChunk || S % chunk != 0 || (long long)B * H > 65535 ||
-      (c_out == nullptr) != (n_out == nullptr))
+      (c_out == nullptr) != (n_out == nullptr) ||
+      (c_in == nullptr) != (n_in == nullptr) ||
+      (c_in == nullptr) != (den == nullptr))
     return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return 0;
   const int cp = (chunk + 15) & ~15;
@@ -647,7 +673,8 @@ extern "C" int rimms_mlstm_f32(const void* q, const void* k, const void* v,
     inter_kernel<<<dim3((M + kCols - 1) / kCols, B * H), kThreads, inter,
                    st>>>((const float*)q, (const float*)k, (const float*)v,
                          ni, vec, (float*)out, (float*)c_out,
-                         (float*)n_out, S, H, M, chunk, inv_sqrt_m);
+                         (float*)n_out, (float*)c_in, (float*)n_in,
+                         (float*)den, S, H, M, chunk, inv_sqrt_m);
     return (int)cudaGetLastError();
   };
   return vec4 ? run(mlstm_intra_kernel<4>, mlstm_inter_kernel<4>)

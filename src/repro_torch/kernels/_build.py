@@ -117,13 +117,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.rimms_fft4_c64.argtypes = [p, p, p, p, p]
     lib.rimms_zip_c64.argtypes = [p, p, p, i64, i32, p]
     lib.rimms_rg_lru_f32.argtypes = [p] * 6 + [i32] * 5 + [p]
+    lib.rimms_rg_lru_bwd_f32.argtypes = [p] * 9 + [i32] * 5 + [p]
     lib.rimms_flash_attention.argtypes = [p, p, p, p] + [i32] * 9 + [f32, p]
-    lib.rimms_mlstm_f32.argtypes = [p] * 9 + [i32] * 5 + [f32, p]
+    lib.rimms_mlstm_f32.argtypes = [p] * 12 + [i32] * 5 + [f32, p]
+    lib.rimms_mlstm_bwd_f32.argtypes = [p] * 18 + [i32] * 5 + [f32, p]
     lib.rimms_paged_attention.argtypes = [p] * 8 + [i32] * 10 + [f32, p]
     for fn in (lib.rimms_fft_c64, lib.rimms_fft4_c64, lib.rimms_zip_c64,
-               lib.rimms_rg_lru_f32,
+               lib.rimms_rg_lru_f32, lib.rimms_rg_lru_bwd_f32,
                lib.rimms_flash_attention, lib.rimms_mlstm_f32,
-               lib.rimms_paged_attention):
+               lib.rimms_mlstm_bwd_f32, lib.rimms_paged_attention):
         fn.restype = i32
     return lib
 
@@ -148,16 +150,20 @@ def library() -> ctypes.CDLL:
 def refuse_grad(kernel: str, *tensors: torch.Tensor) -> None:
     """Raise :class:`NotImplementedError` when autograd would record a
     call of ``kernel`` on ``tensors`` (grad mode on and any of them
-    requiring grad).  The kernels have no backward: a ctypes launch
-    returns an output with no ``grad_fn``, so a ``loss.backward()``
-    through it would silently drop every gradient beneath.  The wrappers
-    call this on their CUDA branch only; the plain versions on the CPU
-    are differentiable torch."""
+    requiring grad).  The FFT, ZIP, flash-attention and paged-attention
+    kernels have no backward (ROADMAP C.15: neither package trains
+    through them): a ctypes launch returns an output with no
+    ``grad_fn``, so a ``loss.backward()`` through it would silently drop
+    every gradient beneath.  Their wrappers call this on their CUDA
+    branch only; the plain versions on the CPU are differentiable torch.
+    The mLSTM and RG-LRU wrappers have backward kernels instead (ROADMAP
+    A12) and never call it."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{kernel}: the CUDA kernel has no backward (ROADMAP A12); "
-            f"call it under torch.no_grad() or torch.inference_mode(), or "
-            f"on CPU tensors, whose plain version is differentiable")
+            f"{kernel}: the CUDA kernel has no backward (ROADMAP C.15; A12 "
+            f"gave backward kernels to the mLSTM and the RG-LRU only); call "
+            f"it under torch.no_grad() or torch.inference_mode(), or on CPU "
+            f"tensors, whose plain version is differentiable")
 
 
 def check(status: int, name: str) -> None:

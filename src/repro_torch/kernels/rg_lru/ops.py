@@ -5,8 +5,8 @@ from __future__ import annotations
 
 import torch
 
-from .._build import refuse_grad
-from .rg_lru import LANES, rg_lru_kernel, rg_lru_plain
+from .rg_lru import (LANES, rg_lru_backward_kernel, rg_lru_backward_plain,
+                     rg_lru_kernel, rg_lru_plain)
 
 
 def _clamp_lanes(block_lanes: int, d: int) -> int:
@@ -22,13 +22,48 @@ def _clamp_lanes(block_lanes: int, d: int) -> int:
     return max(ok)
 
 
+class _RGLRUScan(torch.autograd.Function):
+    """The scan with its backward by device: a CUDA tensor's forward and
+    backward launch the kernels, a CPU tensor's run the plain versions.
+    The forward keeps a, h0 and its own h_seq; the backward does not run
+    the recurrence again."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0, lanes):
+        if a.is_cuda:
+            hs, hn = rg_lru_kernel(a, b, h0, block_lanes=lanes)
+        else:
+            hs, hn = rg_lru_plain(a, b, h0)
+        if any(ctx.needs_input_grad):
+            ctx.save_for_backward(a, h0, hs)
+        ctx.lanes = lanes
+        return hs, hn
+
+    @staticmethod
+    def backward(ctx, dhs, dhn):
+        a, h0, hs = ctx.saved_tensors
+        dhs = (torch.zeros_like(hs) if dhs is None
+               else dhs.to(torch.float32).contiguous())
+        dhn = (torch.zeros_like(h0) if dhn is None
+               else dhn.to(torch.float32).contiguous())
+        if a.is_cuda:
+            da, db, dh0 = rg_lru_backward_kernel(a, hs, h0, dhs, dhn,
+                                                 block_lanes=ctx.lanes)
+        else:
+            da, db, dh0 = rg_lru_backward_plain(a, hs, h0, dhs, dhn)
+        return da, db, dh0, None
+
+
 def rg_lru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor, *,
                 block_lanes: int = LANES):
     """h_t = a_t · h_{t-1} + b_t over a, b: (B, S, D) and h0: (B, D),
     all float32.  Returns (h_seq (B, S, D), h_final (B, D)).
 
     CUDA tensors go to the hand-written kernel; CPU tensors to the plain
-    chunked scan (the kernel's arithmetic); anything else raises.  ``block_lanes`` tunes lanes per
+    chunked scan (the kernel's arithmetic); anything else raises.  Both
+    are differentiable through an autograd ``Function`` whose backward
+    goes the same way: the backward kernel, or its plain version on the
+    CPU.  ``block_lanes`` tunes lanes per
     thread block (bit-identical across values); it is clamped down to
     the largest multiple of 128 dividing D padded to 128, as the
     reference clamps it, and D itself is never padded."""
@@ -51,9 +86,6 @@ def rg_lru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor, *,
         raise ValueError(f"rg_lru_scan needs h0 of shape {(batch, d)}, got "
                          f"{tuple(h0.shape)}")
     lanes = _clamp_lanes(block_lanes, d)
-    if a.is_cuda:
-        refuse_grad("rg_lru_scan", a, b, h0)
-        return rg_lru_kernel(a, b, h0, block_lanes=lanes)
-    if a.device.type == "cpu":
-        return rg_lru_plain(a, b, h0)
+    if a.is_cuda or a.device.type == "cpu":
+        return _RGLRUScan.apply(a, b, h0, lanes)
     raise ValueError(f"rg_lru_scan has no kernel for device {a.device}")

@@ -16,6 +16,12 @@ versions of one function, both a chunked scan over S in chunks of
 Both compute every product and sum rounded on its own, in the same
 order, so they agree bit for bit.  A sequence of at most CHUNK steps is
 one chunk, and then both are the sequential loop.
+
+The backward is the same chunked scan run from the last step back
+(``csrc/rg_lru_bwd.cu`` and :func:`rg_lru_backward_plain`, equal bit
+for bit): with g_t the gradient reaching h_t, g_t = dh_t + a_{t+1} g_{t+1}
+from g_S = dh_S + dh_final, then da_t = g_t h_{t-1}, db_t = g_t and
+dh0 = a_1 g_1, reading the forward's own h_seq.
 """
 
 from __future__ import annotations
@@ -27,7 +33,8 @@ import torch
 from .._build import check, launch, library
 
 __all__ = ["CHUNK", "LANES", "launch_plan", "rg_lru_kernel", "rg_lru_plain",
-           "launches"]
+           "rg_lru_backward_kernel", "rg_lru_backward_plain", "launches",
+           "backward_launches"]
 
 #: lane granularity of ``block_lanes`` (the reference's vector width;
 #: the wrapper clamps ``block_lanes`` to a multiple of it)
@@ -41,6 +48,8 @@ MAX_THREADS = 512
 
 #: kernel launches since the count was last set to 0
 launches = 0
+#: backward kernel launches since the count was last set to 0
+backward_launches = 0
 _count_lock = threading.Lock()
 
 
@@ -111,3 +120,74 @@ def rg_lru_plain(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
         hs[:, :, t] = h
     hs = hs.view(batch, n * CHUNK, d)[:, :s].contiguous()
     return hs, (hs[:, -1].clone() if s else h0.clone())
+
+
+def rg_lru_backward_kernel(a: torch.Tensor, hs: torch.Tensor,
+                           h0: torch.Tensor, dhs: torch.Tensor,
+                           dhn: torch.Tensor, *, block_lanes: int = LANES):
+    """The gradients (da, db, dh0) of ``rg_lru_kernel``'s (h_seq, h_final)
+    given theirs (dhs, dhn), from its inputs a, h0 and its output hs: all
+    contiguous float32 on one CUDA device, shaped as the forward's.  The
+    caller has validated them; this launches on the current stream and
+    does not wait."""
+    global backward_launches
+    batch, s, d = a.shape
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    dh0 = torch.empty_like(h0)
+    if batch == 0 or d == 0:
+        return da, db, dh0
+    sums = torch.empty(launch_plan(batch, s, d, block_lanes)["sums_shape"],
+                       dtype=torch.float32, device=a.device)
+    check(launch(library().rimms_rg_lru_bwd_f32, a, a.data_ptr(),
+                 hs.data_ptr(), h0.data_ptr(), dhs.data_ptr(),
+                 dhn.data_ptr(), da.data_ptr(), db.data_ptr(),
+                 dh0.data_ptr(), sums.data_ptr(), batch, s, d,
+                 int(block_lanes), CHUNK), "rg_lru backward")
+    with _count_lock:
+        backward_launches += 1
+    return da, db, dh0
+
+
+def rg_lru_backward_plain(a: torch.Tensor, hs: torch.Tensor,
+                          h0: torch.Tensor, dhs: torch.Tensor,
+                          dhn: torch.Tensor):
+    """The backward kernel's chunked reverse scan in torch ops: with E
+    the gradient a step hands the step before it (a_t g_t), each chunk
+    from E = 0 at its end gives its local E and its product of a's, the
+    carry runs from E = dh_final at the last chunk back, and every chunk
+    is rescanned from its carry, g = dh + E, da = g h_prev, db = g,
+    E = a g.  Returns (da, db, dh0) in fresh tensors."""
+    batch, s, d = a.shape
+    n = max(-(-s // CHUNK), 1)
+    pad = n * CHUNK - s
+    # steps past S are identities (a = 1, dh = 0) and are dropped
+    ac = torch.cat([a, a.new_ones((batch, pad, d))], 1).view(
+        batch, n, CHUNK, d)
+    gc = torch.cat([dhs, dhs.new_zeros((batch, pad, d))], 1).view(
+        batch, n, CHUNK, d)
+    hp = torch.cat([h0[:, None], hs], 1)[:, :s]  # h_{t-1}
+    hp = torch.cat([hp, hs.new_zeros((batch, pad, d))], 1).view(
+        batch, n, CHUNK, d)
+    # 1. every chunk from E = 0 at its end: its local E and product of a's
+    e = torch.zeros((batch, n, d), dtype=a.dtype, device=a.device)
+    p = torch.ones_like(e)
+    for t in reversed(range(CHUNK)):
+        e = ac[:, :, t] * (gc[:, :, t] + e)
+        p = p * ac[:, :, t]
+    # 2. the carry entering each chunk at its end, in reverse chunk order
+    ein = torch.empty_like(e)
+    state = dhn.clone()
+    for k in reversed(range(n)):
+        ein[:, k] = state
+        state = p[:, k] * state + e[:, k]
+    # 3. every chunk rescanned from its carry
+    da, db = torch.empty_like(ac), torch.empty_like(ac)
+    e = ein
+    for t in reversed(range(CHUNK)):
+        g = gc[:, :, t] + e
+        db[:, :, t] = g
+        da[:, :, t] = g * hp[:, :, t]
+        e = ac[:, :, t] * g
+    da = da.view(batch, n * CHUNK, d)[:, :s].contiguous()
+    db = db.view(batch, n * CHUNK, d)[:, :s].contiguous()
+    return da, db, e[:, 0].clone()

@@ -22,9 +22,13 @@ Where the reference's prefill runs its own chunkwise einsums and
   ``h_final`` is the prefill cache's h; decode is the one-step update.
 
 Train mode is prefill without the cache.  It reaches the same kernel
-calls: on the CPU their plain versions, which are differentiable torch;
-on the card under grad the wrappers raise (they have no backward,
-ROADMAP A12), so the recurrent families train on the CPU only for now.
+calls, which are differentiable on both devices: each wrapper is an
+autograd ``Function`` whose backward launches a hand-written backward
+kernel on the card (``csrc/mlstm_bwd.cu``, ``csrc/rg_lru_bwd.cu``) and
+runs its plain version on the CPU.  Under per-layer remat a training
+step runs each kernel forward twice (the step, then the recompute) and
+backward once.  The sLSTM's loop is differentiated by autograd, step by
+step.
 
 Every layer casts to float32 where the reference does, and the kernels
 get contiguous float32.  The leaves a block names in ``FLOAT32`` are ones

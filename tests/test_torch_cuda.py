@@ -465,7 +465,6 @@ def _grad_cases(dev):
     def leaf(*shape, **kw):
         return torch.randn(*shape, **kw).requires_grad_(True)
 
-    B, S, H, m = 1, 16, 2, 64
     table = torch.zeros((2, 2), dtype=torch.int32, device=dev)
     return {
         "fft": lambda: fft_ops.fft(leaf(2, 64, **c64)),
@@ -474,13 +473,6 @@ def _grad_cases(dev):
         "flash_attention": lambda: flash_ops.flash_attention(
             leaf(1, 64, 2, 64, **f32), torch.randn(1, 64, 2, 64, **f32),
             torch.randn(1, 64, 2, 64, **f32)),
-        "mlstm_chunkwise": lambda: mlstm_ops.mlstm_chunkwise(
-            leaf(B, S, H, m, **f32), torch.randn(B, S, H, m, **f32),
-            torch.randn(B, S, H, m, **f32), torch.rand(B, S, H, **f32),
-            -torch.rand(B, S, H, **f32), chunk=8),
-        "rg_lru_scan": lambda: rg_ops.rg_lru_scan(
-            torch.rand(1, 8, 128, **f32), leaf(1, 8, 128, **f32),
-            torch.zeros(1, 128, **f32)),
         "paged_attention": lambda: pa_ops.paged_attention(
             leaf(2, 4, 64, **f32), torch.randn(4, 16, 2, 64, **f32),
             torch.randn(4, 16, 2, 64, **f32), table,
@@ -489,11 +481,10 @@ def _grad_cases(dev):
 
 
 @pytest.mark.parametrize("name", ["fft", "zip_mul", "flash_attention",
-                                  "mlstm_chunkwise", "rg_lru_scan",
                                   "paged_attention"])
 def test_wrappers_refuse_grad_on_cuda(cuda, name):
-    """A CUDA input that requires grad, with grad mode on, raises (the
-    kernels have no backward, ROADMAP A12) instead of returning an output
+    """A CUDA input that requires grad, with grad mode on, raises (these
+    kernels have no backward, ROADMAP C.15) instead of returning an output
     cut from the graph; under ``torch.no_grad()`` the kernel runs."""
     call = _grad_cases(cuda)[name]
     with pytest.raises(NotImplementedError, match=f"{name}.*no backward"):
@@ -503,3 +494,119 @@ def test_wrappers_refuse_grad_on_cuda(cuda, name):
     torch.cuda.synchronize()
     first = out[0] if isinstance(out, tuple) else out
     assert first.grad_fn is None and first.is_cuda
+
+
+@pytest.mark.parametrize("B,S,H,m,chunk,state", [
+    (2, 48, 3, 40, 16, False), (1, 64, 2, 64, 64, False),
+    (1, 256, 2, 64, 32, True), (1, 1024, 4, 512, 128, False)])
+def test_mlstm_backward_kernel_matches_autograd_of_plain(cuda, B, S, H, m,
+                                                         chunk, state):
+    """``loss.backward()`` through ``mlstm_chunkwise`` on the card
+    launches the forward and backward kernels once each and gives
+    autograd's gradients through ``mlstm_plain``: each within 1e-4 of
+    its max (1e-3 at xLSTM's width, m 512)."""
+    gen = torch.Generator(device=cuda).manual_seed(S + m)
+    ins = [torch.randn(B, S, H, m, device=cuda, generator=gen)
+           for _ in range(3)]
+    ins += [torch.rand(B, S, H, device=cuda, generator=gen),
+            -torch.rand(B, S, H, device=cuda, generator=gen)]
+    leaves = [t.clone().requires_grad_(True) for t in ins]
+    before = (ML.launches, ML.backward_launches)
+    out = mlstm_ops.mlstm_chunkwise(*leaves, chunk=chunk, return_state=state)
+    outs = out if state else (out,)
+    assert outs[0].grad_fn is not None
+    seeds = [torch.randn(o.shape, device=cuda, generator=gen) for o in outs]
+    torch.autograd.backward(outs, seeds)
+    torch.cuda.synchronize()
+    assert (ML.launches, ML.backward_launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    plain = [t.clone().requires_grad_(True) for t in ins]
+    ref = ML.mlstm_plain(*plain, chunk=chunk, return_state=state)
+    want = torch.autograd.grad(ref if state else (ref,), plain, seeds)
+    tol = 1e-3 if m >= 512 else 1e-4
+    for t, w in zip(leaves, want):
+        err = float((t.grad - w).abs().max())
+        assert err <= tol * float(w.abs().max()), (err, float(w.abs().max()))
+
+
+@pytest.mark.parametrize("B,S,D", [(2, 64, 200), (2, 65, 200),
+                                   (1, 300, 512)])
+def test_rg_lru_backward_kernel_bit_equal_to_plain(cuda, B, S, D):
+    """``loss.backward()`` through ``rg_lru_scan`` on the card launches
+    the backward kernel once: its gradients are ``rg_lru_backward_plain``'s
+    bits on the forward's h_seq, the same at every ``block_lanes``, and
+    within 1e-5 of autograd's through ``rg_lru_plain`` (nonzero h0 and
+    dh_final)."""
+    gen = torch.Generator(device=cuda).manual_seed(S + D)
+    a = torch.rand(B, S, D, device=cuda, generator=gen)
+    b, dhs = (torch.randn(B, S, D, device=cuda, generator=gen)
+              for _ in range(2))
+    h0, dhn = (torch.randn(B, D, device=cuda, generator=gen)
+               for _ in range(2))
+    got = None
+    for lanes in (128, 256, 512):
+        leaves = [t.clone().requires_grad_(True) for t in (a, b, h0)]
+        before = RL.backward_launches
+        hs, hn = rg_ops.rg_lru_scan(*leaves, block_lanes=lanes)
+        torch.autograd.backward((hs, hn), (dhs, dhn))
+        torch.cuda.synchronize()
+        assert RL.backward_launches == before + 1
+        grads = [t.grad for t in leaves]
+        if got is None:
+            got = grads
+            plain = RL.rg_lru_backward_plain(a, hs.detach(), h0, dhs, dhn)
+            assert all(torch.equal(x, y) for x, y in zip(got, plain))
+        assert all(torch.equal(x, y) for x, y in zip(grads, got)), lanes
+    ref = [t.clone().requires_grad_(True) for t in (a, b, h0)]
+    want = torch.autograd.grad(RL.rg_lru_plain(*ref), ref, (dhs, dhn))
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
+
+
+def test_recurrent_train_step_launches_backward_kernels(cuda):
+    """One remat training step of each recurrent family at smoke size in
+    float32 on the card: every mLSTM (RG-LRU) layer launches its forward
+    kernel twice (the step and the recompute) and its backward kernel
+    once, and the loss is finite."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import build_model
+    from repro_torch.models.model_api import layer_kinds
+    from repro_torch.tree import leaves, map_tree
+
+    for arch, mod, kind in (("xlstm_350m", ML, "mlstm"),
+                            ("recurrentgemma_2b", RL, "rec")):
+        cfg = dataclasses.replace(get_config(arch).smoke(), dtype="float32")
+        model = build_model(cfg)
+        params = map_tree(lambda t: t.to(cuda).requires_grad_(True),
+                          model.init(torch.Generator().manual_seed(0)))
+        batch = {k: torch.as_tensor(v, device=cuda) for k, v in
+                 TokenPipeline(cfg, 2, 32, seed=0).batch_at(0).items()}
+        before = (mod.launches, mod.backward_launches)
+        loss = model.loss(params, batch, remat=True)
+        loss.backward()
+        torch.cuda.synchronize()
+        layers = layer_kinds(cfg).count(kind)
+        assert (mod.launches - before[0], mod.backward_launches - before[1]
+                ) == (2 * layers, layers), arch
+        assert math.isfinite(loss.item())
+        assert all(p.grad is not None for p in leaves(params)), arch
+
+
+@pytest.mark.parametrize("arch", ["xlstm-350m", "recurrentgemma-2b"])
+def test_launch_train_trains_recurrent_families_on_cuda(cuda, arch,
+                                                        tmp_path):
+    """``python -m repro_torch.launch.train --arch ... --smoke`` trains the
+    recurrent families on the card: finite losses, and the step's forward
+    and backward kernels launched."""
+    from repro_torch.launch import train as launch_train
+
+    mod = ML if arch.startswith("xlstm") else RL
+    before = (mod.launches, mod.backward_launches)
+    rep = launch_train.main(["--arch", arch, "--smoke", "--steps", "3",
+                             "--ckpt-dir", str(tmp_path / "ck")])
+    assert rep["final_step"] == 3
+    assert all(math.isfinite(m["loss"]) for m in rep["metrics"])
+    assert mod.launches > before[0] and mod.backward_launches > before[1]
