@@ -16,11 +16,13 @@ through serial :meth:`Runtime.run` and the graph executor
   static scheduling — asserted in ``--smoke``).
 
 Accelerator spaces live on ``--device`` (default CUDA; ``cpu`` runs on
-CPU tensors).  Only the thread backend is ported (``--backend process``
-raises, ``auto`` resolves to thread), so the process record
-(``BENCH_graph_process.json``) has no counterpart here.
+CPU tensors).  ``--backend process`` runs the graph case's host-payload
+PEs on subprocess workers (with ``--device cpu`` the accelerators too;
+on CUDA they stay in-process) and writes the process record
+(``BENCH_graph_process.json``'s layout) with its measured
+``wall_speedup_vs_serial``.
 
-Run:  PYTHONPATH=src python -m benchmarks_torch.bench_graph [--smoke] [--device cpu]
+Run:  PYTHONPATH=src python -m benchmarks_torch.bench_graph [--smoke] [--device cpu] [--backend process]
 """
 
 from __future__ import annotations
@@ -90,16 +92,25 @@ def smoke(json_path: str | None = None, backend: str = "thread",
           device=None) -> None:
     """CI gate: graph mode must (1) match serial outputs bitwise and
     copy-counts exactly under rimms/round_robin, and (2) beat the serial
-    modeled makespan on a 2-accelerator fork-join workload."""
+    modeled makespan on a 2-accelerator fork-join workload.  With
+    ``backend="process"`` the graph case runs on the process backend:
+    the serial case stays in-process, making (1) a cross-backend
+    bit-identity check, and the record additionally gates measured
+    ``wall_speedup_vs_serial`` on hosts with ≥ 4 cores."""
     import json
+    import os
     from pathlib import Path
 
     from repro_torch.core.hete import hete_sync
     from repro_torch.core.runtime import resolve_backend
 
     backend = resolve_backend(backend)
+    proc = backend == "process"
     accs = ("gpu0", "gpu1")
-    ways, n, depth, repeats = 4, 1 << 13, 2, 2
+    # process smoke uses compute-dominant sizes (pipe round-trips
+    # dominate tiny problems) and one extra repeat for a stabler min
+    ways, n, depth, repeats = (4, 1 << 15, 2, 3) if proc \
+        else (4, 1 << 13, 2, 2)
 
     rt_s, ctx_s, bufs_s, tasks_s = _build("round_robin", accs,
                                           ways=ways, n=n, depth=depth,
@@ -138,6 +149,15 @@ def smoke(json_path: str | None = None, backend: str = "thread",
             "model_speedup": sm / gm,
             "gate": {"makespan_model": gm, "copies": gc},
         }
+        if proc:
+            wall_vs_serial = sw / max(gw, 1e-12)
+            rec["wall_speedup_vs_serial"] = wall_vs_serial
+            rec["gate_directions"] = {"wall_speedup_vs_serial": "min"}
+            rec["gate_tolerances"] = {"wall_speedup_vs_serial": 0.0}
+            if (os.cpu_count() or 1) >= 4:
+                rec["gate"]["wall_speedup_vs_serial"] = wall_vs_serial
+            else:
+                rec["gate_skipped"] = ["wall_speedup_vs_serial"]
         Path(json_path).write_text(json.dumps(rec, indent=1))
         print(f"wrote {json_path}", flush=True)
     print(f"graph smoke: OK (backend={backend})", flush=True)
@@ -152,8 +172,7 @@ def main() -> None:
     ap.add_argument("--json", default="BENCH_graph.json",
                     help="machine-readable smoke output path ('' to skip)")
     ap.add_argument("--backend", default="thread", choices=BACKENDS,
-                    help="kernel-execution backend for the graph case "
-                         "(only thread is ported)")
+                    help="kernel-execution backend for the graph case")
     ap.add_argument("--device", default=None,
                     help="where accelerator spaces live (default: CUDA; "
                          "'cpu' runs on CPU tensors)")

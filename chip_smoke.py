@@ -136,7 +136,26 @@ Phases, each of which raises (exit code 1) on a failed check:
    x 256, the sLSTM's host loop) trained at full width and depth
    through ``Trainer`` (3 steps each, phase 13's checks), each kernel
    launched exactly twice forward (the step, remat's recompute) and once
-   backward per layer of its kind and step.
+   backward per layer of its kind and step;
+15. process backend — ``backend="process"`` beside the card: (a) a
+   Session with cpu0 and cpu1 in spawned subprocess workers over a
+   shared-memory host arena and gpu0 in-process on ``cuda:0`` runs 2FZF,
+   3ZIP and a 4-way fork-join at n 2048, every task pinned: outputs
+   bit-identical to the thread backend's (2FZF within 1e-4 of numpy's),
+   equal ledgers per pair and FFT/ZIP launches, worker pids apart from
+   this process, no worker with CUDA initialised, every worker reaped by
+   ``close()`` within 10 s; the run is traced, linted and read by the
+   profile CLI; (b) ``die`` on cpu0 raises ``WorkerDied`` with "exit code
+   17" and a later cpu0 task runs, ``boom`` on cpu0 propagates its error;
+   the calibration CLI's ``run --backend process`` (cpu PEs measured on
+   their workers) and ``show``;
+   (c) ``bench_graph`` and ``bench_stream`` ``--backend process`` at smoke
+   and ``bench_stream`` at the nightly workflow's depth: the port's
+   ``check_regression`` table printed whole, every modeled row exactly
+   the baseline's, bit-identical to the thread backend, compute
+   divergence cells; the measured ``wall_speedup_vs_serial`` rows are
+   reported beside the reference's own (which fails that gate on an
+   8-CPU host too), not held.  Records go to ``build/process_backend/``.
 
 Phases 3 and 4 also hold the paged-attention kernel against its plain
 version (the reference's sweep, rows of length 0, repeated pages, and
@@ -3259,6 +3278,412 @@ def phase_recurrent_train(dev, out_dir: Path):
 
 
 # ------------------------------------------------------------------ main
+# ------------------------------------------------- 15. process backend
+#: phase 15's mixed workload: the paper's chains at this length
+PROCESS_N = 2048
+#: the reference's own process smokes on an 8-CPU host (the JAX package's
+#: bench_graph / bench_stream ``--smoke --backend process``) and the
+#: committed baselines' recorded values: its wall gate fails there too
+REFERENCE_WALL = {"graph": {"reference_8cpu": 0.0522, "baseline": 0.0200},
+                  "stream": {"reference_8cpu": 0.0182, "baseline": 0.0186,
+                             "nightly_baseline": 0.0133}}
+#: bench_stream at the nightly workflow's depth (no --smoke)
+STREAM_NIGHTLY = dict(clients=8, chains=8, n=1 << 14)
+#: seconds close() may take to reap every worker
+REAP_S = 10.0
+
+
+def _process_workload(s, n):
+    """The paper's 2FZF and 3ZIP chains at ``n`` and a 4-way fork-join
+    through a Session with cpu0, cpu1 and gpu0, every task pinned so both
+    backends place (and so compute) alike.  Returns output futures."""
+    from repro_torch.apps.radar import _fill, submit_2fzf
+
+    rng = np.random.default_rng(15)
+    fzf = submit_2fzf(s, n, pins=("cpu0", "gpu0", "cpu1", "gpu0"), seed=1,
+                      tag="_p15")
+    outs = {"2fzf": fzf["out"]}
+    ins = []
+    for _ in range(4):
+        buf = s.malloc((n,), np.complex64)
+        _fill(buf.hete, rng)
+        ins.append(buf)
+    z0 = s.submit("zip", ins[:2], pin="cpu0", name="zip0_p15")
+    z1 = s.submit("zip", ins[2:], pin="gpu0", name="zip1_p15")
+    outs["3zip"] = s.submit("zip", [z0, z1], pin="cpu1", name="zip2_p15")
+    src = s.malloc((n,), np.complex64)
+    _fill(src.hete, rng)
+    fsrc = s.submit("fft", [src], pin="gpu0", name="src_fft_p15")
+    pes = ("cpu0", "gpu0", "cpu1", "gpu0")
+    branches = []
+    for w, pe in enumerate(pes):
+        weight = s.malloc((n,), np.complex64)
+        _fill(weight.hete, rng)
+        cur = s.submit("zip", [fsrc, weight], pin=pe, name=f"fork{w}_p15")
+        cur = s.submit("fft", [cur], pin=pe, name=f"branch{w}_fft_p15")
+        branches.append(s.submit("ifft", [cur], pin=pes[(w + 1) % 4],
+                                 name=f"branch{w}_ifft_p15"))
+    j0 = s.submit("zip", branches[:2], pin="cpu0", name="join0_p15")
+    j1 = s.submit("zip", branches[2:], pin="gpu0", name="join1_p15")
+    outs["forkjoin"] = s.submit("zip", [j0, j1], pin="cpu1",
+                                name="join2_p15")
+    want = np.fft.ifft(np.fft.fft(fzf["a"].hete.data)
+                       * np.fft.fft(fzf["b"].hete.data))
+    return outs, want
+
+
+def _mixed_run(backend, device, n, trace_dir=None):
+    """One mixed Session (cpu0, cpu1, gpu0; round robin, every task
+    pinned) on ``backend``: outputs, ledger, kernel launches, and for the
+    process backend the workers' pids, start-up seconds and reports, and
+    close()'s reap time."""
+    from benchmarks_torch import common
+    from repro_torch.apps.radar import make_session
+
+    with common.tracing(trace_dir, f"process_mixed_{backend}"):
+        s = make_session(policy="rimms", scheduler="round_robin", n_cpu=2,
+                         accelerators=("gpu0",), backend=backend,
+                         device=device)
+        rec = {"backend": s.backend}
+        if backend == "process":
+            # spawn the workers up front: their start-up (one import of
+            # torch each) lies outside every checked window
+            pool = s.runtime._get_process_pool()
+            t0 = time.perf_counter()
+            for pe in ("cpu0", "cpu1"):
+                pool.worker(pe)
+            rec["worker_startup_s"] = time.perf_counter() - t0
+        reset_counts()
+        t0 = time.perf_counter()
+        futs, want = _process_workload(s, n)
+        rec["outs"] = {k: np.array(f.result(timeout=600))
+                       for k, f in futs.items()}
+        # the chain's value: numpy's 2FZF (float64) within 1e-4 of its
+        # largest magnitude
+        err = float(np.max(np.abs(rec["outs"]["2fzf"] - want)))
+        if not err <= 1e-4 * float(np.max(np.abs(want))):
+            raise AssertionError(f"{backend} 2FZF off numpy by {err}")
+        rec["2fzf_err"] = err
+        s.barrier()
+        rec["wall_s"] = time.perf_counter() - t0
+        rec["launches"] = read_counts()
+        rec["by_pair"] = s.ledger.snapshot()["by_pair"]
+        rec["bytes"] = dict(s.ledger.bytes_moved)
+        rec["report"] = {k: s.report()[k] for k in ("n_tasks", "n_completed",
+                                                    "makespan_model")}
+        s.close()
+    if backend == "process":
+        pool = s.runtime._process_pool
+        rec["pids"] = pool.pids()
+        rec["workers"] = {pe: pool.worker(pe).metrics_state()["worker"]
+                          for pe in sorted(rec["pids"])}
+        rec["worker_tasks"] = {
+            k: v["value"] for k, v in s.metrics.snapshot().items()
+            if k.startswith("worker/") and k.endswith("/tasks")}
+        procs = pool.procs()
+        t0 = time.perf_counter()
+        s.runtime.close()
+        while (any(p.is_alive() for p in procs)
+               and time.perf_counter() - t0 < REAP_S + 5):
+            time.sleep(0.02)
+        rec["reap_s"] = time.perf_counter() - t0
+        rec["alive_after_close"] = sum(p.is_alive() for p in procs)
+    else:
+        s.runtime.close()
+    return rec
+
+
+def _failures(device):
+    """(b): ``die`` on cpu0 raises WorkerDied naming exit code 17 and a
+    later task on cpu0 runs; ``boom`` on cpu0 propagates its error."""
+    import repro_torch.apps.elemwise  # noqa: F401  (scale, boom, die)
+    from repro_torch.core.api import Session
+    from repro_torch.core.pworker import WorkerDied
+
+    s = Session.emulated(policy="rimms", scheduler="round_robin", n_cpu=1,
+                         accelerators=("gpu0",), backend="process",
+                         device=device)
+    out = {}
+    try:
+        a = s.malloc((64,), np.float64)
+        a.data[:] = np.arange(64)
+        try:
+            s.submit("die", [a], pin="cpu0").result(timeout=300)
+            raise AssertionError("die on cpu0 returned")
+        except WorkerDied as e:
+            if "exit code 17" not in str(e):
+                raise AssertionError(f"WorkerDied without exit code 17: {e}")
+            out["died"] = str(e)
+        later = np.asarray(s.submit("scale", [a], factor=2.0,
+                                    pin="cpu0").result(timeout=300))
+        if not np.array_equal(later, 2.0 * np.arange(64)):
+            raise AssertionError("the task after the worker's death is wrong")
+        try:
+            s.submit("boom", [a], pin="cpu0").result(timeout=300)
+            raise AssertionError("boom on cpu0 returned")
+        except RuntimeError as e:
+            if "boom kernel always fails" not in str(e):
+                raise AssertionError(f"boom raised something else: {e}")
+            out["boom"] = str(e).splitlines()[0]
+        out["pids"] = s.runtime._process_pool.pids()
+    finally:
+        s.close()
+        s.runtime.close()
+    return out
+
+
+def _calibrate_process(out_dir: Path):
+    """``python -m repro_torch.calibrate run --backend process`` on one
+    rung (cpu0 and cpu1 measured on their workers, gpu0 in-process on the
+    card), then ``show``: a gpu winner for every tuned op, and cpu rows."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    path = out_dir / "calib_process.json"
+    t0 = time.perf_counter()
+    for argv in (["run", "--out", str(path), "--ladder", "64KiB",
+                  "--backend", "process"], ["show", str(path)]):
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.calibrate", *argv],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=900)
+        if out.returncode != 0:
+            raise AssertionError(f"calibrate {argv[0]} --backend process "
+                                 f"exited {out.returncode}:\n{out.stderr}")
+    table = json.loads(path.read_text())
+    if table["meta"]["cli"]["backend"] != "process":
+        raise AssertionError(f"calibrate run wrote {table['meta']['cli']}")
+    for op in TUNED_KERNEL:
+        for kind in ("gpu", "cpu"):
+            if f"| {op} | {kind} |" not in out.stdout:
+                raise AssertionError(f"calibrate show --backend process: "
+                                     f"no {kind} winner for {op}")
+    seconds = time.perf_counter() - t0
+    log(f"[process] calibrate run --backend process + show in "
+        f"{seconds:.1f}s; {len(out.stdout.splitlines())} lines shown")
+    return seconds
+
+
+def _arena_alloc_ms(capacity: int, n: int = 40, nbytes: int = 16 << 10):
+    """Host ms per allocation from a shared host arena of ``capacity``
+    bytes (the reference's bitset over 64-byte blocks), ``n`` allocations
+    of ``nbytes`` held at once, as a session holds its buffers."""
+    from repro_torch.core.shm import SharedHostArena
+
+    arena = SharedHostArena(capacity)
+    try:
+        held = []
+        t0 = time.perf_counter()
+        for _ in range(n):
+            held.append(arena.zeros((nbytes,), np.uint8))
+        return (time.perf_counter() - t0) / n * 1e3
+    finally:
+        del held
+        arena.destroy()
+
+
+def _process_gates(records, baselines: Path, what: str):
+    """The port's check_regression over the process records: its whole
+    table printed; every modeled row held exactly equal to the baseline;
+    the wall rows (``wall_speedup_vs_serial``, direction min, floor 1.0)
+    reported beside the reference's own figures, not held (the reference
+    fails that gate on an 8-CPU host too)."""
+    import contextlib
+    import io
+
+    from benchmarks_torch import check_regression
+
+    cmp_json = records[0].parent / f"check_{what}.json"
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = check_regression.main([str(p) for p in records]
+                                   + ["--baselines", str(baselines),
+                                      "--json", str(cmp_json)])
+    for line in buf.getvalue().splitlines():
+        log(f"[process] check_regression {what}: {line}")
+    result = json.loads(cmp_json.read_text())
+    walls = {}
+    for res in result["results"]:
+        for row in res["rows"]:
+            if row["metric"] == "wall_speedup_vs_serial":
+                walls[res["name"]] = row
+            elif row["status"] != "ok":
+                raise AssertionError(f"{what} {res['name']}: modeled row "
+                                     f"{row} not ok")
+        if not res["rows"]:
+            raise AssertionError(f"{what} {res['name']}: {res['failures']}")
+    for path in records:
+        rec = json.loads(path.read_text())
+        base = json.loads((baselines / path.name).read_text())
+        modeled = {k: v for k, v in rec["gate"].items()
+                   if k != "wall_speedup_vs_serial"}
+        want = {k: v for k, v in base["gate"].items()
+                if k != "wall_speedup_vs_serial"}
+        if modeled != want:
+            raise AssertionError(f"{what} {path.name}: modeled gate "
+                                 f"{modeled} != baseline {want}")
+        log(f"[process] {what} {path.name}: modeled gate {modeled} equals "
+            f"the baseline exactly")
+    other = [f for f in result["failures"]
+             if "wall_speedup_vs_serial" not in f]
+    if other:
+        raise AssertionError(f"{what}: check_regression failures {other}")
+    return rc, walls
+
+
+def phase_process_backend(dev, out_dir: Path, smi: str):
+    """Phase 15: the process backend beside the card.  (a) a mixed
+    Session (cpu0 and cpu1 in spawned workers, gpu0 in-process on
+    ``cuda:0``) runs 2FZF, 3ZIP and a 4-way fork-join at ``PROCESS_N``,
+    every task pinned: outputs bit-identical to the thread backend's,
+    equal ledgers and FFT/ZIP launches, worker pids apart from this
+    process, no worker with CUDA initialised, every worker reaped by
+    close() within ``REAP_S``; traced, linted, and read by the profile
+    CLI.  (b) ``die`` and ``boom`` on cpu0, and on the card the
+    calibration CLI's ``run --backend process`` and ``show``.  (c)
+    bench_graph and
+    bench_stream ``--backend process`` at smoke and bench_stream at the
+    nightly workflow's depth: modeled gates equal to the baselines,
+    bit-identical to the thread backend, compute divergence cells; the
+    wall rows reported beside the reference's.  Returns the records and
+    (a)'s kernel launches."""
+    from benchmarks_torch import bench_graph, bench_stream, common
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t_phase = time.perf_counter()
+    device = None if dev.type == "cuda" else dev
+    rec = {}
+    # (a): a warm-up (first launches, numpy's plans), then the thread
+    # run and the process run, each counted
+    _mixed_run("thread", device, PROCESS_N)
+    thread = _mixed_run("thread", device, PROCESS_N)
+    proc = _mixed_run("process", device, PROCESS_N,
+                      trace_dir=str(out_dir / "traces"))
+    for k in thread["outs"]:
+        if not np.array_equal(thread["outs"][k], proc["outs"][k]):
+            raise AssertionError(f"process {k} output differs from thread")
+        if not np.all(np.isfinite(proc["outs"][k])):
+            raise AssertionError(f"process {k} output not finite")
+    if (thread["by_pair"], thread["bytes"]) != (proc["by_pair"],
+                                                proc["bytes"]):
+        raise AssertionError(f"ledgers differ: thread {thread['by_pair']} "
+                             f"process {proc['by_pair']}")
+    if thread["launches"] != proc["launches"]:
+        raise AssertionError(f"launches differ: thread {thread['launches']} "
+                             f"process {proc['launches']}")
+    if dev.type == "cuda" and (proc["launches"]["fft"] <= 0
+                               or proc["launches"]["zip"] <= 0):
+        raise AssertionError(f"gpu0 launched no kernel: {proc['launches']}")
+    if proc["report"]["n_completed"] != proc["report"]["n_tasks"]:
+        raise AssertionError(f"process run: {proc['report']}")
+    # a PE on the card keeps in-process dispatch: only cpu PEs get a
+    # worker there (on the CPU, gpu0's space is host-format: it gets one)
+    pes = ["cpu0", "cpu1"] + (["gpu0"] if dev.type == "cpu" else [])
+    if sorted(proc["pids"]) != pes:
+        raise AssertionError(f"workers {proc['pids']}, expected {pes}")
+    if (os.getpid() in proc["pids"].values()
+            or len(set(proc["pids"].values())) != len(pes)):
+        raise AssertionError(f"worker pids {proc['pids']} (parent "
+                             f"{os.getpid()})")
+    for pe, info in proc["workers"].items():
+        if info["cuda_initialized"]:
+            raise AssertionError(f"worker {pe} initialised CUDA: {info}")
+    if not all(proc["worker_tasks"].get(f"worker/{pe}/tasks", 0) > 0
+               for pe in ("cpu0", "cpu1")):
+        raise AssertionError(f"worker tasks {proc['worker_tasks']}")
+    if proc["alive_after_close"] or proc["reap_s"] > REAP_S:
+        raise AssertionError(f"close() left {proc['alive_after_close']} "
+                             f"workers after {proc['reap_s']:.2f}s")
+    trace = out_dir / "traces" / "TRACE_process_mixed_process.json"
+    doc = json.loads(trace.read_text())
+    spans = [e for e in doc["traceEvents"] if e.get("ph") == "X"
+             and (e.get("args") or {}).get("backend") == "process"]
+    if not spans:
+        raise AssertionError("no forwarded worker span in the process trace")
+    _profile_cli([trace], out_dir)
+    rec["mixed"] = {
+        "n": PROCESS_N, "by_pair": proc["by_pair"],
+        "launches": proc["launches"], "pids": proc["pids"],
+        "workers": proc["workers"], "worker_tasks": proc["worker_tasks"],
+        "worker_startup_s": proc["worker_startup_s"],
+        "reap_s": proc["reap_s"], "2fzf_err_vs_numpy": proc["2fzf_err"],
+        "wall_s": {"thread": thread["wall_s"],
+                                             "process": proc["wall_s"]},
+        "makespan_model": proc["report"]["makespan_model"],
+        "worker_spans": len(spans)}
+    log("[process] (a) mixed " + json.dumps(rec["mixed"]))
+
+    # (b)
+    rec["failures"] = _failures(device)
+    log("[process] (b) " + json.dumps(rec["failures"]))
+    if dev.type == "cuda":  # the CLI measures on the card only
+        rec["calibrate_s"] = _calibrate_process(out_dir)
+    # what a process Session pays per host buffer (ROADMAP C.17)
+    from repro_torch.core.shm import default_arena_bytes
+
+    rec["arena_alloc_ms"] = {
+        f"{cap >> 20}MiB": _arena_alloc_ms(cap)
+        for cap in sorted({64 << 20, default_arena_bytes()})}
+    log("[process] shared-arena allocation, host ms each: "
+        + json.dumps(rec["arena_alloc_ms"]))
+
+    # (c): the process smokes and the nightly stream
+    kw = {} if device is None else {"device": device}
+    smoke_dir, nightly_dir = out_dir / "smoke", out_dir / "nightly"
+    smoke_dir.mkdir(exist_ok=True)
+    nightly_dir.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    bench_graph.smoke(str(smoke_dir / "BENCH_graph_process.json"),
+                      backend="process", **kw)
+    with common.tracing(str(out_dir / "traces"), "stream_process",
+                        metrics_dir=str(out_dir / "metrics")):
+        bench_stream.run_stream(
+            clients=4, chains=6, n=bench_stream.N_PROCESS,
+            json_path=str(smoke_dir / "BENCH_stream_process.json"),
+            smoke=True, backend="process", **kw)
+    bench_stream.run_stream(
+        **STREAM_NIGHTLY,
+        json_path=str(nightly_dir / "BENCH_stream_process.json"),
+        smoke=False, backend="process", **kw)
+    (nightly_dir / "BENCH_graph_process.json").write_text(
+        (smoke_dir / "BENCH_graph_process.json").read_text())
+    rec["benches_s"] = time.perf_counter() - t0
+    walls = {}
+    for depth, d, base in (("smoke", smoke_dir, BASELINES),
+                           ("nightly", nightly_dir, BASELINES / "nightly")):
+        paths = [d / "BENCH_graph_process.json",
+                 d / "BENCH_stream_process.json"]
+        _, rows = _process_gates(paths, base, depth)
+        for path in paths:
+            r = json.loads(path.read_text())
+            if r["backend"] != "process":
+                raise AssertionError(f"{path}: backend {r['backend']}")
+            if r["bench"] == "stream":
+                if not (r["bit_identical_vs_thread"] and r["bit_identical"]
+                        and r["copies_match"]):
+                    raise AssertionError(f"{depth} stream: not identical "
+                                         f"to the thread backend / batch")
+                cells = [c["ema_ratio"] for c in r["divergence"].values()
+                         if c["kind"] == "compute" and c["count"] > 0]
+                if not any(x is not None and x > 0 and math.isfinite(x)
+                           for x in cells):
+                    raise AssertionError(f"{depth} stream: no compute "
+                                         f"divergence cell")
+            walls[f"{depth}_{r['bench']}"] = {
+                "wall_speedup_vs_serial": r["wall_speedup_vs_serial"],
+                "wall_speedup_vs_thread": r.get("wall_speedup_vs_thread"),
+                "gated": "wall_speedup_vs_serial" in r["gate"],
+                "check_regression": (rows.get(path.name) or {}).get(
+                    "status", "SKIP"),
+                "reference": REFERENCE_WALL[r["bench"]]}
+    for k, v in walls.items():
+        log(f"[process] wall {k}: " + json.dumps(v) + f" ({smi})")
+    rec["walls"] = walls
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[process] phase {rec['phase_s']:.1f}s, workers' start-up "
+        f"{proc['worker_startup_s']:.2f}s, mixed wall thread "
+        f"{thread['wall_s']:.4f}s process {proc['wall_s']:.4f}s, benches "
+        f"{rec['benches_s']:.1f}s ({smi})")
+    return rec, proc["launches"]
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi, name = phase_card()
@@ -3371,6 +3796,12 @@ def main() -> int:
     bwd_timing = {r["kernel"].split("_backward")[0]: r
                   for r in rec_train["timing"]}
 
+    t0 = time.perf_counter()
+    process, p15_counts = phase_process_backend(
+        dev, ROOT / "build" / "process_backend", smi)
+    log(f"[process] phase in {time.perf_counter() - t0:.1f}s; gpu0 kernel "
+        f"launches beside the workers {p15_counts}")
+
     def pick(kernel, key, value):
         return next(r for r in timing
                     if r["kernel"] == kernel and r.get(key) == value)
@@ -3394,7 +3825,10 @@ def main() -> int:
         # the radar path for FFT and ZIP, the serving path for paged
         # attention, the recurrent path for mLSTM and RG-LRU, the
         # autotuning path for the kernel only it runs
-        path_launches = (launches[kname] if kname in ("fft", "zip") else
+        # FFT and ZIP: the radar path's and phase 15's gpu0 PE, launched
+        # in-process beside the process backend's workers
+        path_launches = (launches[kname] + p15_counts[kname]
+                         if kname in ("fft", "zip") else
                          serve_counts[kname] if kname == "paged_attention"
                          else rec_counts[kname] if kname in ("mlstm", "rg_lru")
                          else tuned[kname])
@@ -3466,7 +3900,8 @@ def main() -> int:
             # lifecycle's launches (phase 13)
             **({"lifecycle_launches": p13_counts[kname]}
                if kname == "paged_attention" else {}),
-            **({"paper_suite_launches": suite["launches"][kname],
+            **({"process_backend_launches": p15_counts[kname],
+                "paper_suite_launches": suite["launches"][kname],
                 "multitenant_launches": runtime["launches"][kname],
                 "multitenant_launches_by_depth": {
                     d: r["launches"][kname]
@@ -3493,6 +3928,7 @@ def main() -> int:
               if not kk.endswith("_profile")}
              if isinstance(v, dict) else v)
          for k, v in rec_train.items()} | {"phase_s": p14_s}))
+    log("[process] summary " + json.dumps(process))
     log(f"[done] {time.perf_counter() - t_start:.1f}s in all")
     log(smi)
     log(json.dumps({"kernels": kernels}))

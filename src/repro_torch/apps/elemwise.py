@@ -94,8 +94,9 @@ def boom(ins):
 @op("die", kinds=KINDS)
 def die(ins):
     """Kill the executing process — worker-death fixtures.  On the
-    thread backend this would kill the whole interpreter, so it is only
-    for a process backend (not ported: ROADMAP A6), never run here."""
+    thread backend, or on a PE that dispatches in-process (an
+    accelerator on CUDA), this would kill the whole interpreter: only
+    ever run it on a PE with a process-backend worker."""
     import os
 
     os._exit(17)

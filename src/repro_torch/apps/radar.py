@@ -110,7 +110,7 @@ def make_runtime(*, policy: str, scheduler: str = "round_robin",
     """Build (Runtime, HeteContext) for an emulated SoC.  ``scheduler``
     may be any of :data:`repro_torch.core.runtime.SCHEDULERS`, including the
     transfer-aware ``"heft"`` used by the graph executor; ``backend``
-    is the kernel-execution backend (thread | auto); ``device`` is
+    is the kernel-execution backend (thread | process | auto); ``device`` is
     where accelerator spaces live (``None``: CUDA, ``"cpu"``: CPU
     tensors)."""
     _build_kernels(device)

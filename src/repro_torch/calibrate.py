@@ -7,8 +7,9 @@ the command line.
     python -m repro_torch.calibrate diff old.json new.json        # what moved
     python -m repro_torch.calibrate --report calib.json ...       # nightly step
 
-``run`` builds an emulated session whose accelerator PEs live on the
-CUDA device (it raises without one), builds the CUDA kernels, registers
+``run`` builds an emulated session (thread or process backend) whose
+accelerator PEs live on the CUDA device (it raises without one), builds
+the CUDA kernels, registers
 the kernels' launch-parameter variants plus the radar app's ops, and
 races every variant per PE kind across the shape-bucket ladder; the
 resulting "rimms-calib-v1" file feeds ``Session(calibration=...)`` of
@@ -68,6 +69,7 @@ def _cmd_run(args) -> int:
         session.save_calibration(args.out)
     finally:
         session.close()
+        session.runtime.close()  # reaps process-backend workers
     n_win = sum(1 for _, w in table.winners()
                 if w.get("variant") != "default")
     print(f"wrote {args.out}: {len(table)} cells, "
@@ -131,8 +133,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     run.add_argument("--out", required=True, metavar="TABLE.json")
     run.add_argument("--backend", default="thread",
                      choices=("thread", "process"),
-                     help="kernel execution backend ('process' is not "
-                          "ported yet and raises)")
+                     help="kernel execution backend: 'process' measures "
+                          "each cpu PE on its subprocess worker; the "
+                          "CUDA PEs stay in-process")
     run.add_argument("--n-cpu", type=int, default=2)
     run.add_argument("--accelerators", default="gpu0",
                      help="comma-separated accelerator names (default gpu0)")

@@ -20,10 +20,12 @@ from .qos import (
     BackpressureFull, ClientState, QoSManager, QuotaExceeded,
     admission_cost, fair_replay,
 )
+from .pworker import ProcessWorker, ProcessWorkerPool, WorkerDied
 from .runtime import (
     BACKENDS, PE, Runtime, Task, make_emulated_soc, platform_names,
     register_platform, resolve_backend, resolve_device, sync_cuda,
 )
+from .shm import SharedHostArena, describe_array, resolve_handle
 from .topology import (
     Link, Topology, TopologyBandwidthModel, TopologyError, build_preset,
 )
@@ -47,9 +49,11 @@ __all__ = [
     "HOST", "BandwidthModel", "Location",
     "Link", "Topology", "TopologyBandwidthModel", "TopologyError",
     "build_preset",
+    "ProcessWorker", "ProcessWorkerPool", "WorkerDied",
     "PE", "Runtime", "Task", "make_emulated_soc", "resolve_device",
     "sync_cuda", "BACKENDS", "resolve_backend", "register_platform",
     "platform_names",
+    "SharedHostArena", "describe_array", "resolve_handle",
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "TraceCollector",
     "global_collector", "install_global", "trace", "trace_lint",
 ]

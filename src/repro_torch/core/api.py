@@ -434,8 +434,8 @@ class Session:
     ) -> None:
         self.runtime = runtime
         # Execution backend: None adopts the runtime's;
-        # "thread" | "auto" re-resolves it ("process" is not ported and
-        # raises; unknown names raise listing the valid choices).
+        # "thread" | "process" | "auto" re-resolves it (unknown names
+        # raise listing the valid choices).
         self.backend = runtime.set_backend(backend)
         self.context: HeteContext = runtime.context
         # Measured calibration: a table — or a path to one,
@@ -526,8 +526,8 @@ class Session:
         by :func:`~repro_torch.core.runtime.platform_names`):
         ``Session.emulated("nvlink_mesh")`` applies the preset's routed
         topology and default arena capacity, with explicit keywords
-        still winning.  ``backend`` selects kernel execution — only
-        ``"thread"`` (or ``"auto"``, which resolves to it) is ported.
+        still winning.  ``backend`` selects kernel execution —
+        ``"thread"`` | ``"process"`` | ``"auto"``.
         ``device`` is where accelerator spaces live: ``None`` is CUDA
         (raising when there is none), ``"cpu"`` runs on CPU tensors."""
         if platform is not None:
@@ -838,15 +838,28 @@ class Session:
         """Drain the stream and stop accepting submissions (idempotent).
         The runtime and its worker pool stay usable — call
         :meth:`Runtime.close` to release the threads.  On close the
-        session also stops the telemetry sampler, and pushes the
+        session also merges process-worker metrics into
+        :attr:`metrics`, stops the telemetry sampler, and pushes the
         modeled track group (+ divergence table, SLO instants) into the
         tracer."""
         if not self.closed:
             self.closed = True
             self._stream.close()
+            self._collect_worker_metrics()
             if self.sampler is not None:
                 self.sampler.stop()
             self._push_trace()
+
+    def _collect_worker_metrics(self) -> None:
+        """Drain process-backend workers' local counters/histograms into
+        this session's registry.  Dead or mid-restart workers are
+        skipped — metric loss is acceptable, a hung close is not."""
+        pool = getattr(self.runtime, "_process_pool", None)
+        if pool is not None:
+            try:
+                pool.collect_metrics(self.metrics)
+            except Exception:
+                pass
 
     def _push_trace(self) -> None:
         """Derive the stream's modeled track group into the tracer —

@@ -19,7 +19,9 @@ the loop:
 * :func:`calibrate` — the measurement harness: microbenchmarks every
   registered ``@rimms.op`` variant per PE kind across a ladder of input
   sizes (warmup + median-of-k, waiting on the CUDA stream of every
-  CUDA output), verifying every non-default variant's outputs
+  CUDA output), on the thread backend *or* through the PE's subprocess
+  worker under ``backend="process"``, verifying every non-default
+  variant's outputs
   are **bit-identical** to the default variant before it may win.
 * :func:`heft_plan` / :func:`simulate_plan` — a deterministic static
   HEFT planner + plan evaluator over the runtime's cost basis, used by
@@ -48,6 +50,7 @@ import numpy as np
 import torch
 
 from .graph import build_graph
+from .locations import HOST
 from .runtime import sync_cuda
 from .telemetry import shape_bucket
 
@@ -405,6 +408,21 @@ def _measure_thread(fn: Callable, ins: List[Any], params: Dict[str, Any],
     return float(np.median(times)), outs
 
 
+def _measure_process(rt, pe, key: tuple, fn: Callable, ins: List[Any],
+                     params: Dict[str, Any], *, k: int,
+                     warmup: int) -> Tuple[float, tuple]:
+    worker = rt._get_process_pool().worker(pe.name)
+    worker.ensure_kernel(key, fn, as_tensor=pe.location != HOST)
+    outs: tuple = ()
+    for _ in range(max(warmup, 1)):
+        outs, _, _, _, _ = worker.run(key, ins, params)
+    times = []
+    for _ in range(max(k, 1)):
+        _, w0, w1, _, _ = worker.run(key, ins, params)
+        times.append(w1 - w0)
+    return float(np.median(times)), outs
+
+
 def calibrate(target, *, registry=None, ops: Optional[Iterable[str]] = None,
               nbytes: Sequence[int] = DEFAULT_LADDER, k: int = 5,
               warmup: int = 2, seed: int = 0,
@@ -418,10 +436,13 @@ def calibrate(target, *, registry=None, ops: Optional[Iterable[str]] = None,
     (pass ``registry=`` explicitly, or the process-default one is used).
     Only ops with a registered input factory (``@rimms.op(...,
     calib=...)``) are measured — others are skipped and listed in
-    ``table.meta["skipped_ops"]``.  Measurements run in-thread and wait
-    on the CUDA stream of every CUDA output.  For a PE whose space is
-    not the host, the inputs are ingested into that space once, before
-    timing, so the kernel receives what dispatch would hand it.
+    ``table.meta["skipped_ops"]``.  Under ``backend="process"`` each
+    kind whose PE dispatches to a worker is measured on that subprocess
+    worker (pipe + shm path included, exactly what dispatch pays).
+    Otherwise measurements run in-thread and wait on the CUDA stream of
+    every CUDA output; for a PE whose space is not the host, the inputs
+    are ingested into that space once, before timing, so the kernel
+    receives what dispatch would hand it.
 
     Winner selection per ``(op, PE kind, bucket)``: fastest variant
     whose outputs are bit-identical to the default variant's (the
@@ -455,17 +476,26 @@ def calibrate(target, *, registry=None, ops: Optional[Iterable[str]] = None,
             if pe is None:
                 continue
             space = rt.context.spaces[pe.location]
+            use_proc = rt.backend == "process" and rt._proc_eligible(pe)
             for nb in nbytes:
                 rng = np.random.default_rng([seed, int(nb)])
                 host_ins = [np.asarray(a) for a in maker(rng, int(nb))]
                 nb_act = sum(a.nbytes for a in host_ins)
-                ins = [space.ingest(a) for a in host_ins]
+                ins = (host_ins if use_proc
+                       else [space.ingest(a) for a in host_ins])
                 ref_outs: Optional[tuple] = None
                 measured: List[Tuple[str, float, Optional[bool]]] = []
                 for vname in reg.variants(op_name, kind):
                     var = reg.variant(op_name, kind, vname)
-                    median, outs = _measure_thread(
-                        var.fn, ins, dict(var.params), k=k, warmup=warmup)
+                    if use_proc:
+                        median, outs = _measure_process(
+                            rt, pe, ("calib", op_name, kind, vname),
+                            var.fn, ins, dict(var.params), k=k,
+                            warmup=warmup)
+                    else:
+                        median, outs = _measure_thread(
+                            var.fn, ins, dict(var.params), k=k,
+                            warmup=warmup)
                     if vname == DEFAULT_VARIANT:
                         ref_outs = outs
                         ident: Optional[bool] = None

@@ -76,6 +76,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import threading
+import weakref
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -128,6 +129,7 @@ class MemorySpace:
         block_size: int = 4096,
         ingest: Optional[Callable[[np.ndarray], Any]] = None,
         egress: Optional[Callable[[Any], np.ndarray]] = None,
+        proc_exec: Optional[bool] = None,
     ) -> None:
         self.location = location
         self.arena = (
@@ -137,6 +139,13 @@ class MemorySpace:
         self.residents: Dict[int, "HeteData"] = {}
         self._ingest = ingest
         self._egress = egress
+        # Process-backend eligibility: kernels for PEs of this space may
+        # run in a subprocess worker only when the space holds host-format
+        # (numpy) payloads a worker can map or receive.  A space whose
+        # ingest makes CUDA tensors keeps in-process execution — the card
+        # already runs asynchronously off the GIL, and a worker must never
+        # create a CUDA context.  Default: eligible iff no custom ingest.
+        self.proc_exec = (ingest is None) if proc_exec is None else bool(proc_exec)
 
     def ingest(self, host_value: np.ndarray) -> Any:
         if self._ingest is None:  # host space: identity
@@ -357,6 +366,10 @@ class HeteContext:
         # (owner, loc) -> bytes that owner currently reserves in loc's arena
         self._tenant_bytes: Dict[Tuple[str, Location], int] = {}
         self._tls = threading.local()  # .strict, .spill_s
+        # -- shared-memory host arena: when attached, malloc places host
+        # buffers in a multiprocessing.shared_memory segment so process PE
+        # workers map them zero-copy.  None -> heap numpy.
+        self.host_arena = None
         # -- tracing: off by default; a process-global collector
         # (benchmarks/run.py --trace-dir) captures contexts at creation.
         self.tracer = None
@@ -375,6 +388,35 @@ class HeteContext:
         label = tracer.register_context(self)
         baseline = self.ledger.attach_tracer(tracer, label)
         tracer.set_ledger_baseline(label, baseline)
+
+    def attach_host_arena(self, arena) -> None:
+        """Attach a :class:`~repro_torch.core.shm.SharedHostArena`: host
+        buffers from :meth:`malloc` (and staging copies routed through
+        :meth:`host_zeros`/:meth:`host_copy`) are carved out of the shared
+        segment while it has room, falling back to heap numpy when full.
+        The arena's lifetime follows this context (GC finalizer unlinks
+        the segment); extents free when their arrays are collected."""
+        self.host_arena = arena
+        if arena is not None:
+            self._arena_finalizer = weakref.finalize(self, arena.destroy)
+
+    def host_zeros(self, shape, dtype) -> np.ndarray:
+        """A zeroed host buffer — shared-memory backed when possible."""
+        if self.host_arena is not None:
+            arr = self.host_arena.zeros(shape, dtype)
+            if arr is not None:
+                return arr
+        return np.zeros(shape, dtype=dtype)
+
+    def host_copy(self, value: np.ndarray) -> np.ndarray:
+        """A fresh host copy of ``value`` — shared-memory backed when
+        possible (the process backend's ingest for an accelerator space
+        on the CPU)."""
+        if self.host_arena is not None:
+            arr = self.host_arena.copy_in(value)
+            if arr is not None:
+                return arr
+        return np.array(value)
 
     # -- registry ----------------------------------------------------------
     def register_space(self, space: MemorySpace) -> MemorySpace:
@@ -579,7 +621,7 @@ class HeteContext:
         shape = tuple(int(s) for s in shape)
         hd = HeteData(shape=shape, dtype=np.dtype(dtype), context=self,
                       owner=owner)
-        hd.copies[HOST] = np.zeros(shape, dtype=dtype)
+        hd.copies[HOST] = self.host_zeros(shape, dtype)
         hd.valid_at = {HOST}
         for loc in spaces:
             self._reserve(hd, loc)

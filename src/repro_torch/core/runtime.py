@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import time
 import warnings
 import weakref
@@ -76,21 +77,21 @@ BACKENDS = ("thread", "process", "auto")
 
 
 def resolve_backend(backend: Optional[str]) -> str:
-    """Validate + resolve a backend name.  Only the thread backend is
-    ported: ``None`` and ``"auto"`` resolve to ``"thread"``, and
-    ``"process"`` (subprocess PE workers over shared-memory host arenas)
-    raises :class:`NotImplementedError` until it is ported (ROADMAP
-    item A6)."""
+    """Validate + resolve a backend name to ``"thread"`` or ``"process"``.
+
+    ``None`` means thread (the historical default).  ``"auto"`` picks the
+    process backend when real parallelism is available — more than one
+    CPU core, or more than one CUDA device — and thread otherwise."""
     if backend is None:
         return "thread"
     if backend not in BACKENDS:
         raise ValueError(
             f"unknown backend {backend!r}: choose one of {BACKENDS}")
-    if backend == "process":
-        raise NotImplementedError(
-            "backend='process' is not ported to repro_torch yet (ROADMAP "
-            "item A6: shm + pworker); use backend='thread'")
-    return "thread"
+    if backend == "auto":
+        if (os.cpu_count() or 1) > 1 or torch.cuda.device_count() > 1:
+            return "process"
+        return "thread"
+    return backend
 
 
 # ---------------------------------------------------------------------------
@@ -200,7 +201,8 @@ class Runtime:
             raise ValueError(f"unknown memory policy {policy!r}")
         if scheduler not in SCHEDULERS:
             raise ValueError(f"unknown scheduler {scheduler!r}")
-        #: always "thread" (in-process kernels); "auto" resolves here.
+        #: "thread" (in-process kernels) or "process" (subprocess PE
+        #: workers for host-payload PEs); "auto" resolves here.
         self.backend = resolve_backend(backend)
         self.pes = list(pes)
         self.by_name = {pe.name: pe for pe in self.pes}
@@ -233,6 +235,9 @@ class Runtime:
         # persistent per-PE worker pool, created lazily by run_graph and
         # reused across calls; close() releases it
         self._worker_pool = None
+        # per-PE subprocess workers, created lazily on the first
+        # process-dispatched kernel; close() reaps them
+        self._process_pool = None
 
     def set_backend(self, backend: Optional[str]) -> str:
         """Re-resolve the execution backend (e.g. a Session adopting this
@@ -254,12 +259,29 @@ class Runtime:
             )
         return self._worker_pool
 
+    def _get_process_pool(self):
+        from .pworker import ProcessWorkerPool  # local import: avoids cycle
+
+        if self._process_pool is None:
+            pool = ProcessWorkerPool()
+            self._process_pool = pool
+            # reap subprocesses when this Runtime is collected
+            self._ppool_finalizer = weakref.finalize(
+                self, ProcessWorkerPool.shutdown, pool
+            )
+        return self._process_pool
+
     def close(self) -> None:
-        """Release the persistent worker pool (idempotent)."""
+        """Release the persistent worker pool and reap every PE worker
+        subprocess (idempotent)."""
         if self._worker_pool is not None:
             self._pool_finalizer.detach()
             self._worker_pool.shutdown()
             self._worker_pool = None
+        if self._process_pool is not None:
+            self._ppool_finalizer.detach()
+            self._process_pool.shutdown()
+            self._process_pool = None
 
     def reset_stats(self) -> None:
         """Clear per-run diagnostics and dispatch state: the task log,
@@ -426,16 +448,33 @@ class Runtime:
             raise
         return ins, model_s, ctx.take_spill_seconds(), moves
 
+    def _proc_eligible(self, pe: PE) -> bool:
+        """Whether ``pe``'s kernels may execute in a subprocess worker:
+        its memory space must hold host-format payloads (see
+        :attr:`~repro_torch.core.hete.MemorySpace.proc_exec`) — PEs whose
+        space holds CUDA tensors keep in-process dispatch."""
+        space = self.context.spaces.get(pe.location)
+        return space is not None and getattr(space, "proc_exec", False)
+
     def _run_kernel(self, task: Task, pe: PE, ins: List[Any]) -> Tuple[tuple, float]:
         """Execute the kernel; returns (outputs, measured seconds).  Waits
         for the CUDA stream of every CUDA output (kernels launch
-        asynchronously) so timings feed the cost model honestly."""
-        fn, params, _ = self._select_kernel(task, pe)
-        t0 = time.perf_counter()
-        outs = _as_tuple(fn(ins, **params))
-        sync_cuda(outs)
-        dt = time.perf_counter() - t0
-        self.cost_model.observe(task.op, pe.kind, task.in_bytes, dt)
+        asynchronously) so timings feed the cost model honestly.
+
+        Backend dispatch: under ``backend="process"`` the call runs on
+        ``pe``'s subprocess worker — shared-memory inputs map zero-copy,
+        the parent thread blocks GIL-free on the reply — for every PE
+        whose space holds host payloads; other PEs (spaces on a CUDA
+        device) execute in-process as before."""
+        if self.backend == "process" and self._proc_eligible(pe):
+            outs, dt = self._run_kernel_process(task, pe, ins)
+        else:
+            fn, params, _ = self._select_kernel(task, pe)
+            t0 = time.perf_counter()
+            outs = _as_tuple(fn(ins, **params))
+            sync_cuda(outs)
+            dt = time.perf_counter() - t0
+            self.cost_model.observe(task.op, pe.kind, task.in_bytes, dt)
         self.divergence.observe(
             "compute", task.op, pe.kind, task.in_bytes, dt,
             self.cost_model.prior_estimate(task.op, pe.kind, task.in_bytes))
@@ -459,6 +498,31 @@ class Runtime:
                     self.variant_log.append((task.op, pe.kind, vname))
                     return fn, {**vparams, **task.params}, vname
         return self._kernels[(task.op, pe.kind)], dict(task.params), "default"
+
+    def _run_kernel_process(self, task: Task, pe: PE,
+                            ins: List[Any]) -> Tuple[tuple, float]:
+        """Process-backend kernel call: ship handles to ``pe``'s worker,
+        forward the worker-measured compute span onto the trace (on the
+        ``pe:{name}:worker`` track, clock-offset corrected and clamped to
+        the parent-observed call window).  An accelerator PE's kernel is
+        handed CPU tensors in the worker, as its space on the CPU holds
+        them under the thread backend."""
+        fn, params, vname = self._select_kernel(task, pe)
+        key = (task.op, pe.kind, vname)
+        worker = self._get_process_pool().worker(pe.name)
+        worker.ensure_kernel(key, fn, as_tensor=pe.location != HOST)
+        outs, w0, w1, k0, k1 = worker.run(key, ins, params)
+        dt = w1 - w0
+        self.cost_model.observe(task.op, pe.kind, task.in_bytes, dt)
+        tracer = self.context.tracer
+        if tracer is not None:
+            tracer.forward_span(
+                task.name or task.op, "compute", f"pe:{pe.name}:worker",
+                k0, k1, lo=w0, hi=w1,
+                args={"op": task.op, "backend": "process",
+                      "worker_pid": worker.pid},
+            )
+        return outs, dt
 
     def _commit_outputs(self, task: Task, pe: PE, outs: tuple) -> Tuple[float, float]:
         """Flag updates (+ host writeback under reference). Returns
@@ -697,6 +761,7 @@ def make_emulated_soc(
     tracking: str = "flag",
     topology=None,
     backend: Optional[str] = None,
+    host_arena_bytes: Optional[int] = None,
     device=None,
 ) -> tuple:
     """Build (runtime-ready PEs, HeteContext) for an emulated SoC.
@@ -723,10 +788,22 @@ def make_emulated_soc(
     with one card every space maps to ``cuda:0`` and keeps its own
     arena.  ``"cpu"`` gives every space CPU tensors.  Ingest and egress
     are real synchronous copies (:func:`~repro_torch.core.hete.tensor_ingest`,
-    :func:`~repro_torch.core.hete.tensor_egress`).  ``backend`` must
-    resolve to ``"thread"`` (see :func:`resolve_backend`).
+    :func:`~repro_torch.core.hete.tensor_egress`).
+
+    ``backend`` (see :func:`resolve_backend`): ``"thread"`` (default)
+    keeps in-process kernels.  ``"process"`` builds the SoC for
+    subprocess PE workers: host buffers come from a
+    :class:`~repro_torch.core.shm.SharedHostArena` (``host_arena_bytes``
+    capacity) that workers map zero-copy, so every cpu PE runs in a
+    worker.  With ``device="cpu"`` the accelerator spaces hold
+    host-format numpy payloads too (distinct shared-memory copies; their
+    arenas — capacity, eviction, the whole ledger — stay modeled exactly
+    as before) and their PEs run in workers, which hand the kernels CPU
+    tensors.  On CUDA the accelerator spaces keep their tensors and
+    in-process dispatch (the card already runs asynchronously; a worker
+    never creates a CUDA context).
     """
-    resolve_backend(backend)
+    backend = resolve_backend(backend)
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         devices = [torch.device("cuda", i)
@@ -734,6 +811,11 @@ def make_emulated_soc(
     else:
         devices = [dev]
     ctx = context or HeteContext(tracking=tracking)
+    if backend == "process" and ctx.host_arena is None:
+        from .shm import SharedHostArena, default_arena_bytes
+
+        ctx.attach_host_arena(SharedHostArena(
+            host_arena_bytes or default_arena_bytes()))
 
     pes: List[PE] = []
     for i in range(n_cpu):
@@ -753,14 +835,23 @@ def make_emulated_soc(
             arena_bytes.get(name, 64 << 20)
             if isinstance(arena_bytes, dict) else arena_bytes
         )
+        if backend == "process" and dev.type == "cpu":
+            # Subprocess workers execute this PE's kernels: device copies
+            # are host-format (distinct shared-memory buffers — the
+            # host→device copy is real, the arena stays modeled).
+            ingest, egress, proc_exec = ctx.host_copy, np.asarray, True
+        else:
+            ingest = tensor_ingest(devices[idx % len(devices)])
+            egress, proc_exec = tensor_egress, False
         ctx.register_space(
             MemorySpace(
                 loc,
                 capacity=capacity,
                 allocator=allocator,
                 block_size=block_size,
-                ingest=tensor_ingest(devices[idx % len(devices)]),
-                egress=tensor_egress,
+                ingest=ingest,
+                egress=egress,
+                proc_exec=proc_exec,
             )
         )
         pes.append(PE(name, "gpu" if kind == "gpu" else "acc", loc, frozenset(ops)))

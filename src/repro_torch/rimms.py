@@ -15,9 +15,6 @@ re-exported here — everything in ``__all__`` — stay put.
         table = rimms.autotune(session)       # measured variant winners
         session.save_calibration("calib.json")
     session = rimms.Session.emulated(calibration="calib.json")
-
-The process backend is not ported, so its exception type
-(``WorkerDied``) is not here yet.
 """
 
 from __future__ import annotations
@@ -36,6 +33,7 @@ from repro_torch.core.calibrate import (
 )
 from repro_torch.core.graph import CostModel
 from repro_torch.core.locations import HOST, Location
+from repro_torch.core.pworker import WorkerDied
 from repro_torch.core.qos import BackpressureFull, QuotaExceeded
 from repro_torch.core.runtime import (
     BACKENDS, platform_names, register_platform, resolve_backend,
@@ -54,5 +52,5 @@ __all__ = [
     "register_platform", "platform_names", "BACKENDS", "resolve_backend",
     "HOST", "Location",
     # public exception types
-    "AllocError", "QuotaExceeded", "BackpressureFull",
+    "AllocError", "QuotaExceeded", "BackpressureFull", "WorkerDied",
 ]

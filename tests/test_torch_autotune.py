@@ -321,8 +321,7 @@ def test_cli_flags_equal_the_reference(sub):
 
 # ------------------------------------------------------------ namespace ----
 def test_rimms_namespace_matches_reference():
-    assert set(jrimms.__all__) - set(rimms.__all__) == {"WorkerDied"}
-    assert set(rimms.__all__) <= set(jrimms.__all__)
+    assert rimms.__all__ == jrimms.__all__
     for name in rimms.__all__:
         assert getattr(rimms, name) is not None
     assert rimms.autotune is autotune

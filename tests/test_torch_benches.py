@@ -33,7 +33,7 @@ ROOT = Path(__file__).resolve().parents[1]
 BASELINES = ROOT / "benchmarks" / "baselines"
 
 SMOKES = {
-    "graph": lambda jp: bench_graph.smoke(jp, backend="auto", device="cpu"),
+    "graph": lambda jp: bench_graph.smoke(jp, backend="thread", device="cpu"),
     "pressure": lambda jp: bench_pressure.run_pressure(
         ways=4, n=1 << 12, json_path=jp, smoke=True, device="cpu"),
     "stream": lambda jp: bench_stream.run_stream(
@@ -77,7 +77,7 @@ def test_smoke_gate_equals_baseline(records, name):
     else:
         assert not off, {k: (rec["gate"][k], base["gate"][k]) for k in off}
     if name == "graph":
-        assert rec["backend"] == "thread"  # "auto" resolves to thread
+        assert rec["backend"] == "thread"
 
 
 def test_check_regression_passes_and_flags_a_doctored_record(
@@ -106,12 +106,22 @@ def test_check_regression_reads_the_reference_baselines_in_place():
 @pytest.mark.parametrize("bench", [bench_graph, bench_stream],
                          ids=["graph", "stream"])
 def test_backend_process_raises(bench, monkeypatch):
-    """Only the thread backend is ported (ROADMAP C.1): ``--backend
-    process`` raises the port's resolve_backend error."""
+    """``--backend process`` reaches the smoke as ``backend="process"``
+    (the process smokes themselves run in ``tests/test_torch_backend.py``
+    against the JAX package's and the baselines); an unknown backend is
+    still refused."""
+    calls = []
+    target = "smoke" if bench is bench_graph else "run_stream"
+    monkeypatch.setattr(bench, target,
+                        lambda *a, **kw: calls.append(kw["backend"]))
     monkeypatch.setattr(sys, "argv", ["bench", "--smoke", "--backend",
                                       "process", "--device", "cpu",
                                       "--json", ""])
-    with pytest.raises(NotImplementedError, match="process"):
+    bench.main()
+    assert calls == ["process"]
+    monkeypatch.setattr(sys, "argv", ["bench", "--smoke", "--backend",
+                                      "fibers", "--device", "cpu"])
+    with pytest.raises(SystemExit):
         bench.main()
 
 

@@ -138,9 +138,23 @@ def test_entry_points_need_cuda_unless_asked(monkeypatch):
 
 
 def test_backends():
-    with pytest.raises(NotImplementedError, match="A6"):
-        truntime.make_emulated_soc(device="cpu", backend="process")
+    """The reference's ``auto`` rule (torch's device count for JAX's),
+    and a working process SoC on the CPU: every space holds host-format
+    shared-memory payloads and runs its kernels in a worker."""
+    import os
+
+    pes, ctx = truntime.make_emulated_soc(device="cpu", backend="process")
+    assert ctx.host_arena is not None
+    assert all(sp.proc_exec for sp in ctx.spaces.values())
+    hd = ctx.malloc((8,), np.complex64)
+    assert ctx.host_arena.describe(hd.data) is not None  # shared memory
+    # the thread SoC keeps tensor spaces, in-process
+    _, tctx = truntime.make_emulated_soc(device="cpu")
+    assert tctx.host_arena is None
+    assert [sp.proc_exec for sp in tctx.spaces.values()] == [True, False, False]
     with pytest.raises(ValueError, match="unknown backend"):
         truntime.resolve_backend("fibers")
-    assert truntime.resolve_backend("auto") == "thread"
+    multi = (os.cpu_count() or 1) > 1 or torch.cuda.device_count() > 1
+    assert truntime.resolve_backend("auto") == ("process" if multi
+                                                else "thread")
     assert truntime.resolve_backend(None) == "thread"

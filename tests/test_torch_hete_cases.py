@@ -161,7 +161,7 @@ def test_use_after_free_raises():
 
 
 def test_ensure_reserves_arena_extent_on_materialization():
-    """Satellite (ISSUE 1): device copies materialized by ensure() must
+    """Device copies materialized by ensure() must
     reserve an extent, so MemorySpace.capacity is enforced at dispatch."""
     def scenario(P, ctx):
         arena = ctx.spaces[P.ACC].arena
@@ -189,7 +189,7 @@ def test_mark_written_reserves_arena_extent():
 
 
 def test_ensure_raises_clear_allocerror_on_exhaustion():
-    """ISSUE 2: exhaustion now evicts transparently; AllocError surfaces
+    """Exhaustion evicts transparently; AllocError surfaces
     only when the pinned working set genuinely exceeds capacity."""
     ctx = HeteContext()
     ctx.register_space(MemorySpace(
@@ -227,7 +227,7 @@ def test_fragment_reservation_charges_parent_once():
 
 
 def test_fragment_of_device_parent():
-    """Satellite (ISSUE 1): fragments of a parent whose valid copy lives
+    """Fragments of a parent whose valid copy lives
     on a device must not expose the stale host view — ensure/sync on the
     fragment resolves to the device bytes (pinned semantics)."""
     ctx = make_ctx()

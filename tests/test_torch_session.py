@@ -508,7 +508,7 @@ def test_numpy_inputs_are_adopted():
 
 
 # ---------------------------------------------------------------------------
-# runtime stats hygiene (ISSUE 4 satellite)
+# runtime stats hygiene
 # ---------------------------------------------------------------------------
 
 

@@ -5,9 +5,8 @@ Every case of the reference's telemetry tests runs here on the port,
 with accelerator spaces on CPU tensors (``device="cpu"``): divergence
 monitor, histogram merge, sampler lifecycle, Prometheus exposition, SLO
 burn rates, registry state merges, the worker-span lint check and the
-profile CLI (``repro_torch.profile``).  One case waits for the process
-backend (ROADMAP A6, C.1): the reference's
-``test_process_workers_merge_metrics_into_session_registry``.  Where a
+profile CLI (``repro_torch.profile``), and the process backend's
+workers merging their metrics into the session registry.  Where a
 value is computed, the JAX package computes it too from the same inputs
 and the two must be equal: ``metrics_text`` of registries fed the same
 samples, merged histogram and registry states, ``DivergenceMonitor``
@@ -649,3 +648,49 @@ def test_slo_eval_equals_reference(target):
     for objective in (1e-4, 1e-3, 1e-2):
         assert slo_eval(lats, objective, target) == jtelemetry.slo_eval(
             lats, objective, target)
+
+
+# ---------------------------------------------------------------------------
+# process-backend workers merge their metrics into the session registry
+# ---------------------------------------------------------------------------
+
+
+def test_process_workers_merge_metrics_into_session_registry():
+    import signal
+
+    def fire(signum, frame):
+        raise TimeoutError("worker metrics case exceeded its 180 s deadline")
+
+    old = signal.signal(signal.SIGALRM, fire)
+    signal.alarm(180)
+    session = make_session(n_cpu=0, accelerators=("gpu0",),
+                           backend="process")
+    try:
+        out = submit_2fzf(session, 256, seed=4, pins=("gpu0",) * 4)[
+            "out"].result(timeout=600)
+        session.barrier()
+        session.close()
+        snap = session.metrics.snapshot()
+        assert snap["worker/gpu0/tasks"]["value"] == 4  # fft,fft,zip,ifft
+        ks = snap["worker/gpu0/kernel_s"]
+        assert ks["count"] == 4 and ks["sum"] > 0
+        # drain semantics: a second collect adds nothing
+        pool = session.runtime._process_pool
+        before = session.metrics.counter("worker/gpu0/tasks").value
+        assert pool.collect_metrics(session.metrics) >= 1
+        assert session.metrics.counter(
+            "worker/gpu0/tasks").value == before
+        # the same chain in-process: the same bits and the same ledger
+        with make_session(n_cpu=0, accelerators=("gpu0",)) as ts:
+            tout = submit_2fzf(ts, 256, seed=4, pins=("gpu0",) * 4)[
+                "out"].result(timeout=600)
+            ts.barrier()
+            assert (ts.ledger.snapshot()["by_pair"]
+                    == session.ledger.snapshot()["by_pair"])
+        ts.runtime.close()
+        np.testing.assert_array_equal(np.asarray(out), np.asarray(tout))
+    finally:
+        session.close()
+        session.runtime.close()
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, old)

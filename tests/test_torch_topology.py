@@ -521,7 +521,7 @@ def test_insert_slot_commit_keeps_intervals_disjoint():
 
 
 # ---------------------------------------------------------------------------
-# ISSUE 4 satellites: serial per-link contention + prefetch ordering
+# serial per-link contention + prefetch ordering
 # ---------------------------------------------------------------------------
 
 
