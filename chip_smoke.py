@@ -3538,11 +3538,16 @@ def phase_process_backend(dev, out_dir: Path, smi: str):
     close() within ``REAP_S``; traced, linted, and read by the profile
     CLI.  (b) ``die`` and ``boom`` on cpu0, and on the card the
     calibration CLI's ``run --backend process`` and ``show``.  (c)
-    bench_graph and
-    bench_stream ``--backend process`` at smoke and bench_stream at the
-    nightly workflow's depth: modeled gates equal to the baselines,
-    bit-identical to the thread backend, compute divergence cells; the
-    wall rows reported beside the reference's.  Returns the records and
+    bench_graph and bench_stream ``--backend process`` at smoke and
+    bench_stream at the nightly workflow's depth: modeled gates equal to
+    the baselines, bit-identical to the thread backend, compute
+    divergence cells; the wall rows reported beside the reference's.
+    The benches build their sessions with ``n_cpu=0``, so on the card
+    (c) spawns no worker: it holds the process backend's set-up (the
+    shared host arena, the card's PEs kept in-process) and its modeled
+    gates, and its bit identity and ledgers hold by construction there.
+    Workers are held by (a) and (b) here and by
+    ``tests/test_torch_backend.py`` on the CPU.  Returns the records and
     (a)'s kernel launches."""
     from benchmarks_torch import bench_graph, bench_stream, common
 
@@ -3624,7 +3629,8 @@ def phase_process_backend(dev, out_dir: Path, smi: str):
     log("[process] shared-arena allocation, host ms each: "
         + json.dumps(rec["arena_alloc_ms"]))
 
-    # (c): the process smokes and the nightly stream
+    # (c): the process smokes and the nightly stream (no cpu PE, so no
+    # worker on the card)
     kw = {} if device is None else {"device": device}
     smoke_dir, nightly_dir = out_dir / "smoke", out_dir / "nightly"
     smoke_dir.mkdir(exist_ok=True)

@@ -761,7 +761,6 @@ def make_emulated_soc(
     tracking: str = "flag",
     topology=None,
     backend: Optional[str] = None,
-    host_arena_bytes: Optional[int] = None,
     device=None,
 ) -> tuple:
     """Build (runtime-ready PEs, HeteContext) for an emulated SoC.
@@ -793,9 +792,9 @@ def make_emulated_soc(
     ``backend`` (see :func:`resolve_backend`): ``"thread"`` (default)
     keeps in-process kernels.  ``"process"`` builds the SoC for
     subprocess PE workers: host buffers come from a
-    :class:`~repro_torch.core.shm.SharedHostArena` (``host_arena_bytes``
-    capacity) that workers map zero-copy, so every cpu PE runs in a
-    worker.  With ``device="cpu"`` the accelerator spaces hold
+    :class:`~repro_torch.core.shm.SharedHostArena` (capacity
+    :func:`~repro_torch.core.shm.default_arena_bytes`) that workers map
+    zero-copy, so every cpu PE runs in a worker.  With ``device="cpu"`` the accelerator spaces hold
     host-format numpy payloads too (distinct shared-memory copies; their
     arenas — capacity, eviction, the whole ledger — stay modeled exactly
     as before) and their PEs run in workers, which hand the kernels CPU
@@ -814,8 +813,7 @@ def make_emulated_soc(
     if backend == "process" and ctx.host_arena is None:
         from .shm import SharedHostArena, default_arena_bytes
 
-        ctx.attach_host_arena(SharedHostArena(
-            host_arena_bytes or default_arena_bytes()))
+        ctx.attach_host_arena(SharedHostArena(default_arena_bytes()))
 
     pes: List[PE] = []
     for i in range(n_cpu):

@@ -63,10 +63,9 @@ class SharedHostArena:
     views over the segment with a GC finalizer returning the extent.
     """
 
-    def __init__(self, capacity: int, *, name: Optional[str] = None) -> None:
+    def __init__(self, capacity: int) -> None:
         capacity = max(int(capacity), _ALIGN)
-        self.shm = shared_memory.SharedMemory(
-            create=True, size=capacity, name=name)
+        self.shm = shared_memory.SharedMemory(create=True, size=capacity)
         self.name = self.shm.name
         self.capacity = capacity
         self.arena = make_allocator("bitset", capacity, _ALIGN)
