@@ -9,8 +9,11 @@ depth) for the json-capable benches, comparable with
 benchmarks/baselines/nightly``.  ``--device`` is where accelerator
 spaces live (default CUDA; ``cpu`` runs on CPU tensors).
 
-``roofline`` is not ported yet: naming it in ``--only`` raises, and a
-run of everything skips it.
+``roofline`` reads the records of ``python -m
+repro_torch.launch.dryrun`` (``build/dryrun/``); without them it emits
+one ``roofline_missing`` row.  A bench named in ``NOT_PORTED`` raises
+when ``--only`` names it and is skipped by a run of everything; every
+bench is ported.
 
 Run:  PYTHONPATH=src python -m benchmarks_torch.run [--only 2fft,graph] [--device cpu]
 """
@@ -20,7 +23,7 @@ from pathlib import Path
 
 #: benches of ``benchmarks/run.py`` that the port lacks, and the ROADMAP
 #: item that ports each
-NOT_PORTED = {"roofline": "A11"}
+NOT_PORTED: dict = {}
 
 
 def _not_ported(name: str):
@@ -35,8 +38,7 @@ def main(argv=None) -> None:
     ap.add_argument("--only", default=None,
                     help="comma list: 2fft,2fzf,alloc,overhead,3zip,apps,"
                          "marking,graph,pressure,topology,stream,"
-                         "multitenant,serve,calibrate (roofline is not "
-                         "ported)")
+                         "multitenant,serve,calibrate,roofline")
     ap.add_argument("--json-dir", default=None, metavar="DIR",
                     help="write BENCH_*.json records for json-capable "
                          "benches into DIR")
@@ -54,7 +56,8 @@ def main(argv=None) -> None:
     from . import (bench_2fft, bench_2fzf, bench_3zip, bench_alloc,
                    bench_apps, bench_calibrate, bench_graph, bench_marking,
                    bench_multitenant, bench_overhead, bench_pressure,
-                   bench_serve, bench_stream, bench_topology)
+                   bench_roofline, bench_serve, bench_stream,
+                   bench_topology)
 
     dev = args.device
 
@@ -72,7 +75,7 @@ def main(argv=None) -> None:
         "3zip": lambda jp: bench_3zip.run(device=dev),
         "apps": lambda jp: bench_apps.run(device=dev),
         "marking": lambda jp: bench_marking.run(device=dev),
-        "roofline": _not_ported("roofline"),
+        "roofline": lambda jp: bench_roofline.run(),
         "graph": graph,
         "pressure": lambda jp: bench_pressure.run_pressure(
             ways=8, n=1 << 14, json_path=jp, smoke=False, device=dev),
@@ -95,6 +98,7 @@ def main(argv=None) -> None:
         "calibrate": lambda jp: bench_calibrate.run_calibrate(
             json_path=jp, smoke=False, device=dev),
     }
+    benches.update({name: _not_ported(name) for name in NOT_PORTED})
     json_names = {
         "graph": "BENCH_graph.json",
         "pressure": "BENCH_pressure.json",

@@ -155,7 +155,24 @@ Phases, each of which raises (exit code 1) on a failed check:
    the baseline's, bit-identical to the thread backend, compute
    divergence cells; the measured ``wall_speedup_vs_serial`` rows are
    reported beside the reference's own (which fails that gate on an
-   8-CPU host too), not held.  Records go to ``build/process_backend/``.
+   8-CPU host too), not held.  Records go to ``build/process_backend/``;
+16. sharding and the launch tools — (a) the dry-run CLI
+   (``python -m repro_torch.launch.dryrun``, 256 fake ranks, no device;
+   subprocesses started before phase 12 and waited for before phase
+   15, whose wall rows and traces want a quiet host) on
+   xlstm-350m ``decode_32k`` and llama3-8b ``train_4k`` on the
+   single-pod mesh with their probes, then ``python -m
+   repro_torch.launch.roofline``: exit 0, every record's n_devices 256,
+   FLOPs and memory per device > 0, algorithm bytes >= 0, a roofline row
+   for each cell; each record's FLOPs, memory, collective bytes by op and
+   row printed; (b) ``launch.train`` (its ``main``, in this process) on
+   recurrentgemma-2b at full width and depth, 1 x 4096, 2 steps, without
+   and with ``--distributed`` (NCCL, a world of one from the environment
+   the phase sets): the losses and grad norms of both steps equal bit for
+   bit, the RG-LRU's launches exact in each run (forward twice a layer of
+   its kind and step, backward once), the peak memory of each; (c) the
+   model-FLOPs share (``Model.model_flops`` over seconds x the bf16 peak)
+   of every step phases 12-14 timed, at their own shapes (diagnostic).
 
 Phases 3 and 4 also hold the paged-attention kernel against its plain
 version (the reference's sweep, rows of length 0, repeated pages, and
@@ -176,6 +193,7 @@ import itertools
 import json
 import math
 import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -188,13 +206,16 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, FP32
 # outside the tensor cores, and the dense tensor-core rates for bf16 and
-# TF32 (float32 inputs).  The bound is stated against these.
-PEAK_BYTES_PER_S = 3.35e12
+# TF32 (float32 inputs).  The bound is stated against these; the bf16
+# and byte peaks are the roofline's own (src/repro_torch/launch/roofline.py).
+from repro_torch.launch.roofline import HBM_BW as PEAK_BYTES_PER_S  # noqa: E402
+from repro_torch.launch.roofline import PEAK_FLOPS as PEAK_BF16_PER_S  # noqa: E402
+
 PEAK_FP32_PER_S = 67e12
-PEAK_BF16_PER_S = 989e12
 PEAK_TF32_PER_S = 495e12
 
 # Model widths from the repo's configs (src/repro/configs): llama3-8b
@@ -3690,10 +3711,245 @@ def phase_process_backend(dev, out_dir: Path, smi: str):
     return rec, proc["launches"]
 
 
+# ------------------------------------------ 16. sharding and launch tools
+#: the dry-run's cells: the reference test's, and a dense training cell
+DRYRUN_CELLS = (("xlstm-350m", "decode_32k"), ("llama3-8b", "train_4k"))
+DRYRUN_WAIT_S = 900  # the longest the wait for the dry-runs may take
+LAUNCH_TRAIN = dict(arch="recurrentgemma_2b", batch=1, seq=4096, steps=2)
+
+
+def start_dryruns(out_dir: Path, log_dir: Path):
+    """The dry-run CLI on each of DRYRUN_CELLS (single-pod, with its
+    probes), one subprocess a cell, all started together; none sees the
+    card, and any still running when the script exits is killed.
+    Returns [(cell, Popen, log path)]."""
+    import atexit
+    import shutil
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    log_dir.mkdir(parents=True, exist_ok=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "CUDA_VISIBLE_DEVICES": ""}
+    procs = []
+    for arch, shape in DRYRUN_CELLS:
+        path = log_dir / f"{arch}__{shape}.log"
+        with open(path, "w") as f:
+            procs.append(((arch, shape), subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--arch", arch, "--shape", shape, "--mesh", "single",
+                 "--probes", "--out", str(out_dir), "--no-skip-existing"],
+                cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT),
+                path))
+    atexit.register(stop_dryruns, procs)
+    return procs
+
+
+def stop_dryruns(procs) -> None:
+    for _, proc, _ in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def wait_dryruns(procs) -> float:
+    """Wait for the dry-runs (each must exit 0); the seconds waited."""
+    t0 = time.perf_counter()
+    for (arch, shape), proc, path in procs:
+        try:
+            rc = proc.wait(timeout=max(1.0, DRYRUN_WAIT_S
+                                       - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"the dry-run of {arch} {shape} ran past "
+                                 f"{DRYRUN_WAIT_S} s") from None
+        if rc != 0:
+            raise AssertionError(f"the dry-run of {arch} {shape} exited "
+                                 f"{rc}: {path.read_text()[-2000:]}")
+    return time.perf_counter() - t0
+
+
+def _dryrun_results(out_dir: Path):
+    """Hold each dry-run record as the reference's test holds it and
+    print what each counted; then the roofline CLI over them."""
+    records = {}
+    for arch, shape in DRYRUN_CELLS:
+        for sfx in ("", "__p1", "__p2"):
+            name = f"{arch.replace('-', '_')}__{shape}__single{sfx}"
+            rec = json.loads((out_dir / f"{name}.json").read_text())
+            if "error" in rec:
+                raise AssertionError(f"dry-run {name}: {rec['error']}")
+            if not (rec["n_devices"] == 256 and rec["cost"]["flops"] > 0
+                    and rec["memory"]["per_device_total"] > 0
+                    and rec["collectives"]["algorithm_bytes"] >= 0):
+                raise AssertionError(f"dry-run {name}: n_devices "
+                                     f"{rec['n_devices']}, {rec['cost']}, "
+                                     f"{rec['memory']}")
+            records[name] = {
+                "seconds": rec["lower_s"] + rec["compile_s"],
+                "flops_per_device": rec["cost"]["flops"],
+                "bytes_accessed_per_device": rec["cost"]["bytes_accessed"],
+                "per_device_total_gib":
+                    rec["memory"]["per_device_total"] / 2 ** 30,
+                "collective_algorithm_bytes_by_op":
+                    rec["collectives"]["by_op"],
+                "collective_counts": rec["collectives"]["counts"],
+                "microbatches": rec.get("microbatches"),
+                "model_flops": rec["model_flops"]}
+            log(f"[sharding] dry-run {name} " + json.dumps(records[name]))
+    roof = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.roofline"], cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+             "CUDA_VISIBLE_DEVICES": ""},
+        capture_output=True, text=True, timeout=300)
+    if roof.returncode != 0:
+        raise AssertionError(f"roofline exited {roof.returncode}: "
+                             f"{roof.stderr[-2000:]}")
+    rows = [line for line in roof.stdout.splitlines()
+            if line.startswith("| ") and not line.startswith("| arch")]
+    for arch, shape in DRYRUN_CELLS:
+        if not any(f"| {arch.replace('-', '_')} | {shape} |" in r
+                   for r in rows):
+            raise AssertionError(f"no roofline row for {arch} {shape}: "
+                                 f"{roof.stdout[-2000:]}")
+    for r in rows:
+        log(f"[sharding] roofline (computed, 256 ranks, H100 constants) {r}")
+    return records, rows
+
+
+def _launch_train(dev, out_dir: Path, distributed: bool):
+    """``repro_torch.launch.train.main`` on LAUNCH_TRAIN at full width,
+    every step logged; its metrics, RG-LRU launches and peak memory."""
+    import functools
+    import gc
+    import shutil
+
+    from repro_torch.launch import train
+
+    ckpt = out_dir / ("ckpt_dist" if distributed else "ckpt_plain")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    spec = LAUNCH_TRAIN
+    argv = ["--arch", spec["arch"], "--batch", str(spec["batch"]),
+            "--seq", str(spec["seq"]), "--steps", str(spec["steps"]),
+            "--ckpt-dir", str(ckpt)] + (["--distributed"] if distributed
+                                        else [])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fwd0, bwd0 = read_counts(), read_backward_counts()
+    config = train.TrainerConfig
+    # every step's loss in the report (the Trainer logs step 1, then
+    # every 10th)
+    train.TrainerConfig = functools.partial(config, log_every=1)
+    try:
+        t0 = time.perf_counter()
+        report = train.main(argv)
+        wall = time.perf_counter() - t0
+    finally:
+        train.TrainerConfig = config
+    torch.cuda.synchronize()
+    return {"metrics": report["metrics"], "wall_s": wall,
+            "forward_launches": read_counts()["rg_lru"] - fwd0["rg_lru"],
+            "backward_launches": (read_backward_counts()["rg_lru"]
+                                  - bwd0["rg_lru"]),
+            "max_memory_allocated_gib":
+                torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def _mfu_lines(smi: str, recurrent, moe_audio, rec_train):
+    """Model FLOPs (``Model.model_flops`` at each step's own shape) over
+    the step's seconds times the bf16 peak, for every step phases 12-14
+    timed."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models import build_model
+
+    rows = []
+
+    def one(phase, arch, kind, seq, batch, seconds):
+        mf = build_model(get_config(arch)).model_flops(
+            ShapeSpec(f"{kind}_{seq}", kind, seq, batch))
+        rows.append({"phase": phase, "arch": arch, "kind": kind,
+                     "batch": batch, "seq": seq, "seconds": seconds,
+                     "model_flops": mf,
+                     "model_flops_share": mf / (seconds * PEAK_BF16_PER_S),
+                     "card": smi})
+
+    serving = [(12, arch, r) for arch, r in recurrent.items()] + [
+        (13, moe_audio[k]["arch"], moe_audio[k]) for k in ("moe", "audio")]
+    for phase, arch, r in serving:
+        one(phase, arch, "prefill", r["prompt"], r["batch"],
+            r["prefill_wall_ms"] / 1e3)
+        one(phase, arch, "decode", r["prompt"], r["batch"],
+            r["ms_per_decode_step"] / 1e3)
+    trained = [(13, moe_audio["train"])] + [
+        (14, r) for r in rec_train.values()
+        if isinstance(r, dict) and "sec_per_step" in r]
+    for phase, r in trained:
+        one(phase, r["arch"], "train", r["seq"], r["batch"],
+            r["sec_per_step"][-1])
+    for row in rows:
+        log("[sharding] mfu (diagnostic) " + json.dumps(row))
+    return rows
+
+
+def phase_sharding(dev, smi: str, recurrent, moe_audio, rec_train):
+    """Phase 16: the launcher's ``--distributed`` on the card (b), the
+    model-FLOPs share of phases 12-14's steps (c), then the records of
+    the dry-runs (a, :func:`start_dryruns`, run on the host beside
+    phases 12-14) and the roofline CLI over them.  Returns the record
+    and the RG-LRU launches of (b)'s two runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_api import layer_kinds
+
+    out_dir = ROOT / "build" / "sharding"
+    plain = _launch_train(dev, out_dir, distributed=False)
+    with socket.socket() as sock:  # a free port for the group's store
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(port),
+           "RANK": "0", "LOCAL_RANK": "0", "WORLD_SIZE": "1"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        dist = _launch_train(dev, out_dir, distributed=True)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    steps = LAUNCH_TRAIN["steps"]
+    n_rec = layer_kinds(get_config(LAUNCH_TRAIN["arch"])).count("rec")
+    for what, run in (("plain", plain), ("distributed", dist)):
+        if [m["step"] for m in run["metrics"]] != list(
+                range(1, steps + 1)):
+            raise AssertionError(f"launch.train {what}: logged steps "
+                                 f"{[m['step'] for m in run['metrics']]}")
+        if (run["forward_launches"], run["backward_launches"]) != (
+                2 * n_rec * steps, n_rec * steps):
+            raise AssertionError(
+                f"launch.train {what}: RG-LRU launches forward "
+                f"{run['forward_launches']}, backward "
+                f"{run['backward_launches']}; want "
+                f"{2 * n_rec * steps}, {n_rec * steps}")
+    got = [(m["loss"], m["grad_norm"]) for m in dist["metrics"]]
+    want = [(m["loss"], m["grad_norm"]) for m in plain["metrics"]]
+    if got != want or not all(math.isfinite(x) for p in got for x in p):
+        raise AssertionError(f"launch.train --distributed {got} != "
+                             f"without the flag {want}")
+    launcher = {"plain": plain, "distributed": dist}
+    log("[sharding] launch.train " + json.dumps(launcher))
+    mfu = _mfu_lines(smi, recurrent, moe_audio, rec_train)
+    dryrun, roofline = _dryrun_results(ROOT / "build" / "dryrun")
+    return ({"launcher": launcher, "mfu": mfu, "dryrun": dryrun,
+             "roofline": roofline},
+            {"forward": plain["forward_launches"] + dist["forward_launches"],
+             "backward": (plain["backward_launches"]
+                          + dist["backward_launches"])})
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi, name = phase_card()
-    sys.path.insert(0, str(ROOT / "src"))
     # the plain versions' matrix products run in full float32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3780,6 +4036,9 @@ def main() -> int:
     log(f"[runtime] phase in {time.perf_counter() - t0:.1f}s; multitenant "
         f"kernel launches {runtime['launches']}")
 
+    # phase 16's dry-runs (host only) run from here on, beside 12-14
+    dryruns = start_dryruns(ROOT / "build" / "dryrun",
+                            ROOT / "build" / "sharding" / "logs")
     t0 = time.perf_counter()
     recurrent, rec_counts = phase_recurrent(dev)
     log(f"[recurrent] phase in {time.perf_counter() - t0:.1f}s")
@@ -3802,11 +4061,24 @@ def main() -> int:
     bwd_timing = {r["kernel"].split("_backward")[0]: r
                   for r in rec_train["timing"]}
 
+    # phase 15's wall rows and traces want a quiet host: the dry-runs end
+    # first
+    dryrun_wait_s = wait_dryruns(dryruns)
+    log(f"[sharding] waited {dryrun_wait_s:.1f}s for the dry-runs")
+
     t0 = time.perf_counter()
     process, p15_counts = phase_process_backend(
         dev, ROOT / "build" / "process_backend", smi)
     log(f"[process] phase in {time.perf_counter() - t0:.1f}s; gpu0 kernel "
         f"launches beside the workers {p15_counts}")
+
+    t0 = time.perf_counter()
+    sharding, p16_counts = phase_sharding(dev, smi, recurrent, moe_audio,
+                                          rec_train)
+    sharding["dryrun_wait_s"] = dryrun_wait_s
+    p16_s = time.perf_counter() - t0
+    log(f"[sharding] phase in {p16_s:.1f}s; RG-LRU launches of the "
+        f"launcher's runs {p16_counts}")
 
     def pick(kernel, key, value):
         return next(r for r in timing
@@ -3906,6 +4178,9 @@ def main() -> int:
             # lifecycle's launches (phase 13)
             **({"lifecycle_launches": p13_counts[kname]}
                if kname == "paged_attention" else {}),
+            # RG-LRU: the training launcher's two runs (phase 16)
+            **({"launcher_launches": p16_counts}
+               if kname == "rg_lru" else {}),
             **({"process_backend_launches": p15_counts[kname],
                 "paper_suite_launches": suite["launches"][kname],
                 "multitenant_launches": runtime["launches"][kname],
@@ -3935,6 +4210,9 @@ def main() -> int:
              if isinstance(v, dict) else v)
          for k, v in rec_train.items()} | {"phase_s": p14_s}))
     log("[process] summary " + json.dumps(process))
+    log("[sharding] summary " + json.dumps(
+        {k: v for k, v in sharding.items() if k != "mfu"}
+        | {"phase_s": p16_s}))
     log(f"[done] {time.perf_counter() - t_start:.1f}s in all")
     log(smi)
     log(json.dumps({"kernels": kernels}))

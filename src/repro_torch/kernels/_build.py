@@ -166,6 +166,19 @@ def refuse_grad(kernel: str, *tensors: torch.Tensor) -> None:
             f"tensors, whose plain version is differentiable")
 
 
+def refuse_dtensor(kernel: str, *tensors: torch.Tensor) -> None:
+    """Raise :class:`TypeError` when any of ``tensors`` is a DTensor: a
+    kernel runs on one card's plain tensors, and a DTensor's shards are
+    never handed to it silently (``to_local``).  The wrappers call this
+    on their CUDA branch; on the CPU a DTensor (the dry-run's) takes the
+    plain versions, which are torch ops."""
+    from torch.distributed.tensor import DTensor
+
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(f"{kernel}: the CUDA kernel takes plain tensors, "
+                        f"not DTensors")
+
+
 def check(status: int, name: str) -> None:
     """Raise if a C entry point returned a CUDA error code."""
     if status != 0:

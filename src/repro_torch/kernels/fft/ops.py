@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from .._build import refuse_grad
+from .._build import refuse_dtensor, refuse_grad
 from .fft import BLOCK_ROWS, MAX_N, fft_kernel, fft_plain
 
 
@@ -32,6 +32,7 @@ def fft(x: torch.Tensor, forward: bool = True, *,
     if br < 1:
         raise ValueError(f"block_rows must be positive, got {block_rows}")
     if x.is_cuda:  # the kernel takes x's shape as it is: no reshape
+        refuse_dtensor("fft", x)
         refuse_grad("fft", x)
         return fft_kernel(x, inverse=not forward, block_rows=br)
     if x.device.type == "cpu":

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from .._build import refuse_grad
+from .._build import refuse_dtensor, refuse_grad
 from .flash_attention import (BLOCK_K, BLOCK_Q, HEAD_DIMS, MAX_BLOCK_K,
                               flash_attention_kernel, flash_attention_plain)
 
@@ -62,6 +62,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if bk > MAX_BLOCK_K:
         raise ValueError(f"block_k {bk} is wider than {MAX_BLOCK_K}")
     if q.is_cuda:
+        refuse_dtensor("flash_attention", q, k, v)
         refuse_grad("flash_attention", q, k, v)
         return flash_attention_kernel(q, k, v, causal=causal, block_q=bq,
                                       block_k=bk)

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import torch
 
+from .._build import refuse_dtensor
 from .mlstm import (CHUNK, MAX_CHUNK, MAX_M, mlstm_backward_kernel,
                     mlstm_backward_plain, mlstm_kernel, mlstm_plain)
 
@@ -90,6 +91,8 @@ def mlstm_chunkwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"chunk {c} is larger than {MAX_CHUNK}")
     if m > MAX_M:
         raise ValueError(f"head width {m} is larger than {MAX_M}")
+    if q.is_cuda:
+        refuse_dtensor("mlstm", q, k, v, i_gate, log_f)
     if q.is_cuda or q.device.type == "cpu":
         save = torch.is_grad_enabled() and any(t.requires_grad
                                                for _, t in named)

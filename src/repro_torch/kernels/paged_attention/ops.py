@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from .._build import refuse_grad
+from .._build import refuse_dtensor, refuse_grad
 from .paged_attention import (MAX_GROUP_ELEMS, MAX_HEAD_DIM,
                               paged_attention_kernel, paged_attention_plain)
 
@@ -71,6 +71,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(f"paged_attention needs a non-empty pool, got "
                          f"{tuple(k_pages.shape)}")
     if q.is_cuda:
+        refuse_dtensor("paged_attention", q, k_pages, v_pages)
         refuse_grad("paged_attention", q, k_pages, v_pages)
         if (k_pages.data_ptr() | v_pages.data_ptr()) % 16:
             raise ValueError("paged_attention reads the pages as 16-byte "

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from .._build import refuse_dtensor
 from .rg_lru import (LANES, rg_lru_backward_kernel, rg_lru_backward_plain,
                      rg_lru_kernel, rg_lru_plain)
 
@@ -86,6 +87,8 @@ def rg_lru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor, *,
         raise ValueError(f"rg_lru_scan needs h0 of shape {(batch, d)}, got "
                          f"{tuple(h0.shape)}")
     lanes = _clamp_lanes(block_lanes, d)
+    if a.is_cuda:
+        refuse_dtensor("rg_lru", a, b, h0)
     if a.is_cuda or a.device.type == "cpu":
         return _RGLRUScan.apply(a, b, h0, lanes)
     raise ValueError(f"rg_lru_scan has no kernel for device {a.device}")

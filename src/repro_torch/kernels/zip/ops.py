@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from .._build import refuse_grad
+from .._build import refuse_dtensor, refuse_grad
 from .zip import BLOCK_ROWS, zip_kernel, zip_plain
 
 
@@ -29,6 +29,7 @@ def zip_mul(a: torch.Tensor, b: torch.Tensor, *,
     if br < 1:
         raise ValueError(f"block_rows must be positive, got {block_rows}")
     if a.is_cuda and b.is_cuda and a.get_device() == b.get_device():
+        refuse_dtensor("zip_mul", a, b)
         refuse_grad("zip_mul", a, b)
         return zip_kernel(a, b, block_rows=br)
     if a.device != b.device:

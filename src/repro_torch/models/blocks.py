@@ -7,7 +7,9 @@ Block protocol (the JAX package's, ``src/repro/models/blocks.py``): a
 block is a namespace of functions
 
   init(cfg, gen) -> params            one layer's params (float32)
+  spec(cfg) -> dict of logical partition specs (:class:`P`)
   init_cache(cfg, batch, max_len, device) -> cache dict
+  cache_spec(cfg) -> the cache's specs
   apply(cfg, params, x, *, mode, cache, pos, extras) -> (x, new_cache)
 
 ``mode`` ∈ {"train", "prefill", "decode"}; ``pos`` is (B,) — the
@@ -22,6 +24,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed.sharding import P, current_rules, shard
 
 from . import layers as L
 
@@ -38,6 +42,17 @@ def kv_cache_init(cfg, batch: int, max_len: int, device=None):
     shape = (batch, length, dims.n_kv, dims.head_dim)
     return {"k": torch.zeros(shape, dtype=L.cdtype(cfg), device=device),
             "v": torch.zeros(shape, dtype=L.cdtype(cfg), device=device)}
+
+
+def kv_cache_spec(cfg):
+    """Head-sharded when possible; otherwise sequence-sharded over the
+    model axis (MHA archs like qwen1.5 (40 heads) / whisper (20) cannot
+    head-shard on 16)."""
+    if L.kv_heads_shardable(cfg):
+        s = P("batch", None, "kv_heads", None)
+    else:
+        s = P("batch", "model", None, None)
+    return {"k": s, "v": s}
 
 
 def _ring_fill(x, w):
@@ -69,14 +84,14 @@ def build_prefill_cache(cfg, k, v, max_len):
 
 
 def _cache_write_token(cfg, cache, k_new, v_new, pos):
-    """Write one token at pos (B,) — rolling ring buffer if windowed."""
+    """Write one token at pos (B,) — rolling ring buffer if windowed.  A
+    scatter along the sequence (each row's own slot), which keeps a
+    cache sharded on its batch and head dims local to each shard."""
     pos = pos.long()
     slot = pos % cache["k"].shape[1] if cfg.window > 0 else pos
-    b = torch.arange(k_new.shape[0], device=k_new.device)
-    k = cache["k"].clone()
-    v = cache["v"].clone()
-    k[b, slot] = k_new[:, 0].to(k.dtype)
-    v[b, slot] = v_new[:, 0].to(v.dtype)
+    idx = slot.view(-1, 1, 1, 1).expand(k_new.shape)
+    k = cache["k"].scatter(1, idx, k_new.to(cache["k"].dtype))
+    v = cache["v"].scatter(1, idx, v_new.to(cache["v"].dtype))
     return {"k": k, "v": v}
 
 
@@ -136,8 +151,21 @@ class DenseLayer:
         }
 
     @staticmethod
+    def spec(cfg):
+        return {
+            "norm1": L.norm_spec(cfg),
+            "attn": L.attention_spec(cfg),
+            "norm2": L.norm_spec(cfg),
+            "mlp": L.mlp_spec(cfg),
+        }
+
+    @staticmethod
     def init_cache(cfg, batch, max_len, device=None):
         return kv_cache_init(cfg, batch, max_len, device)
+
+    @staticmethod
+    def cache_spec(cfg):
+        return kv_cache_spec(cfg)
 
     @staticmethod
     def apply(cfg, params, x, *, mode, cache=None, pos=None, extras=None):
@@ -146,9 +174,10 @@ class DenseLayer:
         attn, cache = _self_attention(cfg, params["attn"], h, mode=mode,
                                       cache=cache, pos=pos, extras=extras)
         x = x + attn @ params["attn"]["wo"].to(x.dtype)
+        x = shard(x, "batch", "res_seq", "dmodel")
         h = L.norm_apply(cfg, params["norm2"], x)
         x = x + L.mlp_apply(cfg, params["mlp"], h)
-        return x, cache
+        return shard(x, "batch", "res_seq", "dmodel"), cache
 
 
 def _attend(q, k, v, dims):
@@ -177,9 +206,14 @@ class EncoderLayer:
 
     FLOAT32 = ()
     init = staticmethod(DenseLayer.init)
+    spec = staticmethod(DenseLayer.spec)
 
     @staticmethod
     def init_cache(cfg, batch, max_len, device=None):
+        return {}
+
+    @staticmethod
+    def cache_spec(cfg):
         return {}
 
     @staticmethod
@@ -193,7 +227,7 @@ class EncoderLayer:
         x = x + attn @ params["attn"]["wo"].to(x.dtype)
         h = L.norm_apply(cfg, params["norm2"], x)
         x = x + L.mlp_apply(cfg, params["mlp"], h)
-        return x, cache
+        return shard(x, "batch", "res_seq", "dmodel"), cache
 
 
 # ---------------------------------------------------------------------------
@@ -221,6 +255,17 @@ class CrossLayer:
         }
 
     @staticmethod
+    def spec(cfg):
+        return {
+            "norm1": L.norm_spec(cfg),
+            "attn": L.attention_spec(cfg),
+            "norm_x": L.norm_spec(cfg),
+            "xattn": L.attention_spec(cfg),
+            "norm2": L.norm_spec(cfg),
+            "mlp": L.mlp_spec(cfg),
+        }
+
+    @staticmethod
     def init_cache(cfg, batch, max_len, device=None):
         c = kv_cache_init(cfg, batch, max_len, device)
         dims = L.attn_dims(cfg)
@@ -230,10 +275,16 @@ class CrossLayer:
         return c
 
     @staticmethod
+    def cache_spec(cfg):
+        s = kv_cache_spec(cfg)
+        s["xk"] = P("batch", None, "kv_heads", None)
+        s["xv"] = P("batch", None, "kv_heads", None)
+        return s
+
+    @staticmethod
     def _cross_kv(cfg, params, enc):
-        """The encoder output's keys and values (B,T,Hkv,hd).  One device:
-        the reference's GQA repeat factor is 1 (no tensor-parallel axis),
-        so the heads are never repeated."""
+        """The encoder output's keys and values (B,T,Hkv_eff,hd), with
+        the GQA repeat."""
         dims = L.attn_dims(cfg)
         dt = enc.dtype
         B, T = enc.shape[:2]
@@ -241,6 +292,10 @@ class CrossLayer:
                                                 dims.head_dim)
         v = (enc @ params["wv"].to(dt)).reshape(B, T, cfg.n_kv_heads,
                                                 dims.head_dim)
+        rep = dims.n_kv // cfg.n_kv_heads
+        if rep > 1:
+            k = torch.repeat_interleave(k, rep, dim=2)
+            v = torch.repeat_interleave(v, rep, dim=2)
         return k, v
 
     @staticmethod
@@ -281,7 +336,7 @@ class CrossLayer:
         # -- MLP ----------------------------------------------------------------
         h = L.norm_apply(cfg, params["norm2"], x)
         x = x + L.mlp_apply(cfg, params["mlp"], h)
-        return x, cache
+        return shard(x, "batch", "res_seq", "dmodel"), cache
 
 
 # ---------------------------------------------------------------------------
@@ -299,86 +354,117 @@ def moe_init(cfg, gen: torch.Generator):
     }
 
 
+def moe_spec(cfg):
+    return {
+        "router": P(None, None),
+        "w_in": P("experts", "fsdp", None),
+        "w_gate": P("experts", "fsdp", None),
+        "w_out": P("experts", None, "fsdp"),
+    }
+
+
 def moe_capacity(cfg, n_tokens: int) -> int:
-    """Slots per expert for ``n_tokens`` tokens: the reference's
-    expression, to the same Python float."""
+    """Slots per expert for a dispatch group of ``n_tokens`` tokens: the
+    reference's expression, to the same Python float."""
     return max(1, int(math.ceil(n_tokens * cfg.top_k / cfg.n_experts
                                 * cfg.capacity_factor)))
 
 
+def _moe_groups(n_tokens: int) -> int:
+    """Dispatch group count = number of batch shards (halved until it
+    divides ``n_tokens``), so every sort and scatter stays shard-local;
+    1 without a mesh."""
+    rules = current_rules()
+    axes = rules.axes_for("batch")
+    g = rules.mesh_size(axes) if axes else 1
+    while g > 1 and n_tokens % g:
+        g //= 2
+    return max(g, 1)
+
+
+def _rows(t, idx):
+    """``t`` (G, R, D) gathered along dim 1 at ``idx`` (G, N)."""
+    return torch.gather(t, 1, idx[..., None].expand(*idx.shape, t.shape[-1]))
+
+
 def moe_apply(cfg, params, x, *, return_routing: bool = False):
-    """Sort-based MoE dispatch: top-k → stable sort by expert → capacity
-    buffers (E, C, D) → batched expert products → combine.  A token past
-    its expert's capacity contributes nothing.
+    """Sort-based MoE dispatch in G groups of the tokens (:func:`_moe_groups`,
+    one per batch shard; 1 without a mesh): per group top-k → stable sort
+    by expert → capacity buffers (G, E, C, D) → expert products → combine.
+    A token past its expert's capacity in its group contributes nothing.
 
-    One dispatch group: the reference groups tokens by batch shard
-    (``_moe_groups``), which is 1 without a mesh, so on one device all
-    B·S tokens share one sort and one set of buffers.
-
-    Every index move is injective (``index_select`` or ``index_copy``
-    with unique indices: a dropped entry gets a row of its own past the
-    buffers), so the forward pass and the gradients are reproducible on
-    the card, where float atomics over repeated indices
-    (``index_add_``) are not, and no backward accumulates thousands of
-    repeated rows one after another.  Each token's K contributions are
-    summed in ascending expert order (the reference's scatter-add
-    order), one add at a time.
+    Every index move is injective (a gather of unique indices, or a
+    scatter of unique indices: a dropped entry gets a row of its own past
+    the buffers), so the forward pass and the gradients are reproducible
+    on the card, where float atomics over repeated indices are not.  Each
+    token's K contributions are summed in ascending expert order (the
+    reference's scatter-add order), one add at a time.
 
     ``return_routing`` also returns ``{"experts", "weights", "keep"}``,
-    each (B·S, K) in top-k order, and ``"capacity"``."""
+    each (B·S, K) in top-k order, and ``"capacity"`` (per group)."""
     B, S, D = x.shape
-    T = B * S
+    N = B * S
     K, E = cfg.top_k, cfg.n_experts
+    G = _moe_groups(N)
+    T = N // G
     capacity = moe_capacity(cfg, T)
     dt = x.dtype
     dev = x.device
 
-    xf = x.reshape(T, D)
-    probs = torch.softmax((xf @ params["router"].to(dt)).float(), dim=-1)
+    xg = shard(x.reshape(G, T, D), "batch", None, None)
+    probs = torch.softmax((xg @ params["router"].to(dt)).float(), dim=-1)
     # top-k with ties to the lower expert index, as jax.lax.top_k
     vals, eidx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    vals, eidx = vals[:, :K], eidx[:, :K]
+    vals, eidx = vals[..., :K], eidx[..., :K]
     vals = vals / torch.sum(vals, dim=-1, keepdim=True)
 
-    order = torch.argsort(eidx.reshape(T * K), stable=True)
-    se = eidx.reshape(T * K)[order]
-    sw = vals.reshape(T * K)[order]
-    counts = torch.bincount(se, minlength=E)
-    offsets = torch.cumsum(counts, 0) - counts  # exclusive
-    slot_pos = torch.arange(T * K, device=dev) - offsets[se]
+    te = eidx.reshape(G, T * K)
+    order = torch.argsort(te, dim=1, stable=True)
+    se = torch.gather(te, 1, order)
+    sw = torch.gather(vals.reshape(G, T * K), 1, order)
+    counts = se.new_zeros((G, E)).scatter_add_(1, se, torch.ones_like(se))
+    offsets = torch.cumsum(counts, 1) - counts  # exclusive, per group
+    slot_pos = (torch.arange(T * K, device=dev)[None, :]
+                - torch.gather(offsets, 1, se))
     keep = slot_pos < capacity
 
     # every sorted entry gets a row of its own: a kept one its slot
     # (e, c) at e * C + c, a dropped one a row past the buffers
     n_slots = E * capacity
     slot = torch.where(keep, se * capacity + slot_pos,
-                       n_slots + torch.cumsum(~keep, 0) - 1)
-    x_sorted = xf[:, None, :].expand(T, K, D).reshape(T * K, D).index_select(
-        0, order)
-    buf = xf.new_zeros((n_slots + T * K, D)).index_copy(0, slot, x_sorted)
-    buf = buf[:n_slots].view(E, capacity, D)  # empty slots stay 0
+                       n_slots + torch.cumsum(~keep, 1) - 1)
+    x_sorted = _rows(xg[:, :, None, :].expand(G, T, K, D).reshape(
+        G, T * K, D), order)
+    buf = xg.new_zeros((G, n_slots + T * K, D)).scatter(
+        1, slot[..., None].expand(G, T * K, D), x_sorted)
+    buf = buf[:, :n_slots].reshape(G, E, capacity, D)  # empty slots stay 0
+    buf = shard(buf, "batch", "experts", None, None)
 
-    h = F.silu(torch.bmm(buf, params["w_gate"].to(dt))) * torch.bmm(
-        buf, params["w_in"].to(dt))
-    y = torch.bmm(h, params["w_out"].to(dt))  # (E, C, D)
+    h = F.silu(torch.einsum("gecd,edf->gecf", buf,
+                            params["w_gate"].to(dt))) * torch.einsum(
+        "gecd,edf->gecf", buf, params["w_in"].to(dt))
+    h = shard(h, "batch", "experts", None, None)
+    y = torch.einsum("gecf,efd->gecd", h, params["w_out"].to(dt))
+    y = shard(y, "batch", "experts", None, None)
 
     # combine: each kept entry reads its slot, weighted; dropped read 0
-    y_sorted = torch.cat([y.reshape(n_slots, D),
-                          y.new_zeros((T * K, D))]).index_select(0, slot)
-    y_sorted = y_sorted * (sw * keep).to(dt)[:, None]
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(T * K, device=dev)
+    y_sorted = _rows(torch.cat([y.reshape(G, n_slots, D),
+                                y.new_zeros((G, T * K, D))], dim=1), slot)
+    y_sorted = y_sorted * (sw * keep).to(dt)[..., None]
+    inv = torch.empty_like(order).scatter_(
+        1, order, torch.arange(T * K, device=dev).expand(G, T * K))
     # a token's entries in ascending sorted position = ascending expert
-    y_tok = y_sorted.index_select(
-        0, torch.sort(inv.view(T, K), dim=1).values.reshape(-1)).view(T, K, D)
-    out = y_tok[:, 0]
+    y_tok = _rows(y_sorted, torch.sort(inv.view(G, T, K), dim=2)
+                  .values.reshape(G, T * K)).view(G, T, K, D)
+    out = y_tok[:, :, 0]
     for k in range(1, K):
-        out = out + y_tok[:, k]
-    out = out.reshape(B, S, D)
+        out = out + y_tok[:, :, k]
+    out = shard(out, "batch", None, None).reshape(B, S, D)
     if not return_routing:
         return out
-    return out, {"experts": eidx, "weights": vals,
-                 "keep": keep[inv].view(T, K), "capacity": capacity}
+    return out, {"experts": eidx.reshape(N, K), "weights": vals.reshape(N, K),
+                 "keep": torch.gather(keep, 1, inv).view(N, K),
+                 "capacity": capacity}
 
 
 class MoELayer:
@@ -394,8 +480,21 @@ class MoELayer:
         }
 
     @staticmethod
+    def spec(cfg):
+        return {
+            "norm1": L.norm_spec(cfg),
+            "attn": L.attention_spec(cfg),
+            "norm2": L.norm_spec(cfg),
+            "moe": moe_spec(cfg),
+        }
+
+    @staticmethod
     def init_cache(cfg, batch, max_len, device=None):
         return kv_cache_init(cfg, batch, max_len, device)
+
+    @staticmethod
+    def cache_spec(cfg):
+        return kv_cache_spec(cfg)
 
     @staticmethod
     def apply(cfg, params, x, *, mode, cache=None, pos=None, extras=None):
@@ -406,4 +505,4 @@ class MoELayer:
         x = x + attn @ params["attn"]["wo"].to(x.dtype)
         h = L.norm_apply(cfg, params["norm2"], x)
         x = x + moe_apply(cfg, params["moe"], h)
-        return x, cache
+        return shard(x, "batch", "res_seq", "dmodel"), cache

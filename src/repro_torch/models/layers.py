@@ -11,9 +11,12 @@ Conventions (the JAX package's, ``src/repro/models/layers.py``)
   reference asks for with ``preferred_element_type=float32`` take float32
   operands here (a bf16 → f32 widening is exact).
 * Full-sequence attention is row-chunked over queries (``q_chunk``).
-* One device, no mesh: KV heads are never repeated (the reference's
-  ``kv_repeat_factor`` is 1 without a tensor-parallel axis) and its
-  ``shard(...)`` annotations have no counterpart.
+* GQA: KV heads are repeated by the smallest factor making them
+  shardable over the tensor-model axis (:func:`kv_repeat_factor`); when
+  no factor works (e.g. 40-head MHA on a 16-wide axis) K/V switch to a
+  sequence-sharded layout over the model axis.  ``shard(...)`` marks
+  where the reference constrains a layout.  Without a mesh (one device)
+  the factor is 1 and every ``shard`` returns its input.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.distributed.sharding import P, current_rules, shard
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -83,6 +88,12 @@ def norm_apply(cfg, params, x):
     return layer_norm(x, params["scale"], params["bias"])
 
 
+def norm_spec(cfg):
+    if cfg.norm == "rmsnorm":
+        return {"scale": P()}
+    return {"scale": P(), "bias": P()}
+
+
 def norm_init(cfg, gen: torch.Generator):
     kw = dict(dtype=pdtype(cfg), device=gen.device)
     if cfg.norm == "rmsnorm":
@@ -134,17 +145,42 @@ def apply_rope(x, pos, theta: float, *, table=None):
 # ---------------------------------------------------------------------------
 
 
+def kv_repeat_factor(cfg) -> int:
+    """Smallest r with (kv·r) % tp == 0 and heads % (kv·r) == 0, else 1."""
+    rules = current_rules()
+    axes = rules.axes_for("heads")
+    tp = rules.mesh_size(axes) if axes else 1
+    kv, h = cfg.n_kv_heads, cfg.n_heads
+    if tp <= 1 or kv % tp == 0:
+        return 1
+    r = 1
+    while kv * r < max(tp, h) + 1:
+        if (kv * r) % tp == 0 and h % (kv * r) == 0:
+            return r
+        r += 1
+    return 1  # fall back to replication
+
+
 @dataclasses.dataclass(frozen=True)
 class AttnDims:
     n_q: int       # query heads
-    n_kv: int      # stored KV heads
+    n_kv: int      # stored KV heads (after repeat)
     group: int     # queries per stored KV head
     head_dim: int
 
 
 def attn_dims(cfg) -> AttnDims:
-    return AttnDims(cfg.n_heads, cfg.n_kv_heads,
-                    cfg.n_heads // cfg.n_kv_heads, cfg.head_dim_)
+    rep = kv_repeat_factor(cfg)
+    n_kv = cfg.n_kv_heads * rep
+    return AttnDims(cfg.n_heads, n_kv, cfg.n_heads // n_kv, cfg.head_dim_)
+
+
+def kv_heads_shardable(cfg) -> bool:
+    """True if the (repeated) KV head count divides the TP axis."""
+    rules = current_rules()
+    axes = rules.axes_for("kv_heads")
+    tp = rules.mesh_size(axes) if axes else 1
+    return tp <= 1 or attn_dims(cfg).n_kv % tp == 0
 
 
 def divisor_chunk(s: int, target: int) -> int:
@@ -171,9 +207,22 @@ def attention_init(cfg, gen: torch.Generator):
     return p
 
 
+def attention_spec(cfg):
+    s = {
+        "wq": P("fsdp", "model"),
+        "wk": P("fsdp", "model"),
+        "wv": P("fsdp", "model"),
+        "wo": P("model", "fsdp"),
+    }
+    if cfg.qkv_bias:
+        s.update({"bq": P("model"), "bk": P("model"), "bv": P("model")})
+    return s
+
+
 def _project_qkv(cfg, params, x, pos, rope: bool = True, *,
                  rope_table=None):
-    """x: (B,S,D) → q (B,S,Hq,hd), k/v (B,S,Hkv,hd).  q and k are rotated
+    """x: (B,S,D) → q (B,S,Hq,hd), k/v (B,S,Hkv_eff,hd) with the GQA
+    repeat (:func:`attn_dims`).  q and k are rotated
     in one pass (RoPE is elementwise); ``rope_table`` is the
     :func:`rope_table` of ``pos`` when the caller made it already."""
     dims = attn_dims(cfg)
@@ -193,6 +242,17 @@ def _project_qkv(cfg, params, x, pos, rope: bool = True, *,
         qk = apply_rope(torch.cat([q, k], dim=2), pos, cfg.rope_theta,
                         table=rope_table)
         q, k = qk.split([dims.n_q, cfg.n_kv_heads], dim=2)
+    rep = dims.n_kv // cfg.n_kv_heads
+    if rep > 1:
+        k = torch.repeat_interleave(k, rep, dim=2)
+        v = torch.repeat_interleave(v, rep, dim=2)
+    q = shard(q, "batch", "seq", "heads", None)
+    if kv_heads_shardable(cfg):
+        k = shard(k, "batch", "seq", "kv_heads", None)
+        v = shard(v, "batch", "seq", "kv_heads", None)
+    else:  # MHA-ish archs on a wider TP axis: sequence-sharded KV
+        k = shard(k, "batch", "model", None, None)
+        v = shard(v, "batch", "model", None, None)
     return q, k, v
 
 
@@ -288,6 +348,14 @@ def mlp_init(cfg, gen: torch.Generator, d_ff: Optional[int] = None):
     }
 
 
+def mlp_spec(cfg):
+    if cfg.act in ("swiglu", "geglu"):
+        return {"w_in": P("fsdp", "model"), "w_gate": P("fsdp", "model"),
+                "w_out": P("model", "fsdp")}
+    return {"w_in": P("fsdp", "model"), "b_in": P("model"),
+            "w_out": P("model", "fsdp"), "b_out": P()}
+
+
 def _gelu(x):
     # jax.nn.gelu defaults to the tanh approximation
     return F.gelu(x, approximate="tanh")
@@ -298,8 +366,10 @@ def mlp_apply(cfg, params, x):
     if cfg.act in ("swiglu", "geglu"):
         act = F.silu if cfg.act == "swiglu" else _gelu
         h = act(x @ params["w_gate"].to(dt)) * (x @ params["w_in"].to(dt))
+        h = shard(h, "batch", "seq", "ff")
         return h @ params["w_out"].to(dt)
     h = _gelu(x @ params["w_in"].to(dt) + params["b_in"].to(dt))
+    h = shard(h, "batch", "seq", "ff")
     return h @ params["w_out"].to(dt) + params["b_out"].to(dt)
 
 
@@ -321,11 +391,20 @@ def embed_init(cfg, gen: torch.Generator, dtype=torch.float32):
     return p
 
 
+def embed_spec(cfg):
+    s = {"table": P("model", "fsdp")}
+    if not cfg.tie_embeddings:
+        s["head"] = P("fsdp", "model")
+    if cfg.pos_embed == "learned":
+        s["pos"] = P(None, "fsdp")
+    return s
+
+
 def embed_tokens(cfg, params, tokens, pos=None):
     x = params["table"][tokens.long()].to(cdtype(cfg))
     if cfg.pos_embed == "learned" and pos is not None:
         x = x + params["pos"][pos.long()].to(cdtype(cfg))
-    return x
+    return shard(x, "batch", "res_seq", "dmodel")
 
 
 def lm_logits(cfg, params, x):
@@ -333,7 +412,7 @@ def lm_logits(cfg, params, x):
         w = params["table"].to(x.dtype).T
     else:
         w = params["head"].to(x.dtype)
-    return x @ w
+    return shard(x @ w, "batch", "seq", "vocab")
 
 
 def xent_loss(cfg, params, hidden, labels, *, chunk: int = 512):
@@ -349,8 +428,13 @@ def xent_loss(cfg, params, hidden, labels, *, chunk: int = 512):
     def piece(h_c, y_c):
         logits = lm_logits(cfg, params, h_c).float()
         lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1,
-                            torch.clamp_min(y_c, 0).long()[..., None])[..., 0]
+        # the gold logit as a masked sum over the vocab (exact: one term
+        # is not zero), which stays local to each shard of a vocab-sharded
+        # DTensor, where a gather's backward would build the whole
+        # (B, C, V) gradient on every rank
+        hit = torch.arange(logits.shape[-1], device=y_c.device) \
+            == torch.clamp_min(y_c, 0).long()[..., None]
+        gold = torch.sum(torch.where(hit, logits, 0.0), dim=-1)
         valid = (y_c >= 0).float()
         return torch.sum((lse - gold) * valid), torch.sum(valid)
 

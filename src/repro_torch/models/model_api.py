@@ -17,7 +17,9 @@ holdings run the same arithmetic.  The reference stacks each group
 pattern's layers on a leading axis for ``lax.scan``; eager torch walks a
 flat list, groups in order and each group's pattern in order
 (:func:`layer_kinds`; :func:`repro_torch.models.convert.params_from_jax`
-flattens the stacked tree the same way).
+flattens the stacked tree the same way).  :meth:`Model.param_specs` and
+:meth:`Model.cache_specs` follow the flat layout: a layer's leaf takes
+the reference's stacked spec without its leading ``None``.
 
 Families → stack plans:
   dense / vlm      [("dense",) × L]
@@ -35,7 +37,8 @@ from typing import Any, Dict, List, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeSpec
+from repro_torch.distributed.sharding import P, shard
 from repro_torch.tree import leaves_with_paths
 
 from . import layers as L
@@ -130,6 +133,21 @@ class Model:
                                  * 0.02).to(dt)
         return params
 
+    def param_specs(self) -> Dict[str, Any]:
+        """Logical partition specs of :meth:`init`'s tree."""
+        cfg = self.cfg
+        specs: Dict[str, Any] = {
+            "embed": L.embed_spec(cfg),
+            "final_norm": L.norm_spec(cfg),
+            "layers": [BLOCKS[k].spec(cfg) for k in layer_kinds(cfg)],
+        }
+        if cfg.family == "audio":
+            specs["enc_layers"] = [EncoderLayer.spec(cfg)
+                                   for _ in range(cfg.n_enc_layers)]
+            specs["enc_norm"] = L.norm_spec(cfg)
+            specs["enc_pos"] = P(None, "fsdp")
+        return specs
+
     # ---- caches ----------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, device=None):
         from repro_torch.core.runtime import resolve_device
@@ -137,6 +155,9 @@ class Model:
         dev = resolve_device(device)
         return [BLOCKS[k].init_cache(self.cfg, batch, max_len, dev)
                 for k in layer_kinds(self.cfg)]
+
+    def cache_specs(self):
+        return [BLOCKS[k].cache_spec(self.cfg) for k in layer_kinds(self.cfg)]
 
     # ---- forward ---------------------------------------------------------------
     def _embed(self, params, batch):
@@ -148,6 +169,7 @@ class Model:
         if cfg.family == "vlm":
             patches = batch["patch_embeds"].to(x.dtype)
             x = torch.cat([patches, x], dim=1)
+            x = shard(x, "batch", "res_seq", "dmodel")
         return x
 
     def _encode(self, params, frames, *, remat: bool = True):
@@ -155,6 +177,7 @@ class Model:
         cfg = self.cfg
         x = frames.to(L.cdtype(cfg))
         x = x + params["enc_pos"].to(x.dtype)[None]
+        x = shard(x, "batch", "res_seq", "dmodel")
         for p in params["enc_layers"]:
             x, _ = _apply_layer(EncoderLayer, cfg, p, x, remat=remat,
                                 mode="train", cache=None, pos=None,
@@ -248,7 +271,81 @@ class Model:
             active += n * (k_over_e if is_expert else 1.0)
         return {"total": total, "active": active, "embed": embed}
 
+    def model_flops(self, shape: ShapeSpec) -> float:
+        """MODEL_FLOPS per step: 6·N_active·tokens (train) or
+        2·N_active·tokens (decode/prefill fwd-only), N excl. embeddings
+        but incl. the LM head matmul."""
+        n = self.param_counts()["active"]
+        head = 0.0 if self.cfg.family == "audio" \
+            else self.cfg.d_model * self.cfg.vocab
+        n = n + head
+        if shape.kind == "train":
+            return 6.0 * n * shape.seq_len * shape.global_batch
+        if shape.kind == "prefill":
+            return 2.0 * n * shape.seq_len * shape.global_batch
+        return 2.0 * n * shape.global_batch  # decode: one token / seq
+
+    def recurrent_correction_flops(self, shape: ShapeSpec) -> float:
+        """Analytic FLOPs of the sLSTM's sequential recurrence, which
+        the reference adds to its probe-derived XLA counts (XLA counts a
+        loop body once).  The port's count covers every step already; the
+        dry-run records this for the same tables and its roofline does
+        not add it."""
+        cfg = self.cfg
+        if cfg.family != "ssm" or shape.kind == "decode":
+            return 0.0
+        n_slstm = sum(pattern.count("slstm") * G
+                      for pattern, G in stack_plan(cfg))
+        f = SLSTMLayer.recurrent_flops(cfg, shape.global_batch,
+                                       shape.seq_len)
+        mult = 3.0 if shape.kind == "train" else 1.0  # fwd+bwd≈2x +remat fwd
+        return n_slstm * f * mult
+
 
 def build_model(cfg: ArchConfig) -> Model:
     stack_plan(cfg)
     return Model(cfg)
+
+
+# ---------------------------------------------------------------------------
+# batch shape specs (abstract inputs for the dry-run)
+# ---------------------------------------------------------------------------
+
+
+def batch_specs(cfg: ArchConfig, shape: ShapeSpec) -> Dict[str, torch.Tensor]:
+    """Shape-only model inputs (meta-device tensors) for an (arch, shape)
+    cell."""
+    B, S = shape.global_batch, shape.seq_len
+
+    def t(shp, dtype=torch.int32):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if shape.kind in ("train", "prefill"):
+        if cfg.family == "vlm":
+            s_txt = S - cfg.n_patches
+            d = {"tokens": t((B, s_txt)), "labels": t((B, s_txt)),
+                 "patch_embeds": t((B, cfg.n_patches, cfg.d_model),
+                                   L.cdtype(cfg))}
+        elif cfg.family == "audio":
+            d = {"tokens": t((B, S)), "labels": t((B, S)),
+                 "frames": t((B, cfg.enc_seq, cfg.d_model), L.cdtype(cfg))}
+        else:
+            d = {"tokens": t((B, S)), "labels": t((B, S))}
+        if shape.kind == "prefill":
+            d.pop("labels")
+        return d
+    # decode: one token; the KV/state cache is a separate argument
+    return {"token": t((B,)), "pos": t((B,))}
+
+
+def batch_sharding_specs(cfg: ArchConfig, shape: ShapeSpec) -> Dict[str, P]:
+    if shape.kind in ("train", "prefill"):
+        out = {"tokens": P("batch", None)}
+        if shape.kind == "train":
+            out["labels"] = P("batch", None)
+        if cfg.family == "vlm":
+            out["patch_embeds"] = P("batch", None, None)
+        if cfg.family == "audio":
+            out["frames"] = P("batch", None, None)
+        return out
+    return {"token": P("batch"), "pos": P("batch")}

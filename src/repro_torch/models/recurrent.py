@@ -34,8 +34,8 @@ Every layer casts to float32 where the reference does, and the kernels
 get contiguous float32.  The leaves a block names in ``FLOAT32`` are ones
 the reference reads in float32 at every use (the sLSTM's recurrent
 weights and bias, the RG-LRU's λ): the model holds them in float32 and
-every other leaf in the compute dtype.  The reference's ``shard(...)``
-annotations have no counterpart on one device.
+every other leaf in the compute dtype.  ``shard(...)`` marks where the
+reference constrains a layout; without a mesh it returns its input.
 """
 
 from __future__ import annotations
@@ -45,6 +45,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import P, shard
 from repro_torch.kernels.mlstm import ops as mlstm_ops
 from repro_torch.kernels.mlstm.mlstm import MAX_CHUNK
 from repro_torch.kernels.rg_lru import ops as rg_lru_ops
@@ -110,6 +111,28 @@ class MLSTMLayer:
         }
 
     @staticmethod
+    def spec(cfg):
+        return {
+            "norm": L.norm_spec(cfg),
+            "w_up": P("fsdp", "ff"),
+            "conv": P(None, "ff"),
+            "wq": P("fsdp", "ff"),
+            "wk": P("fsdp", "ff"),
+            "wv": P("fsdp", "ff"),
+            "w_gates": P("fsdp", None),
+            "w_down": P("ff", "fsdp"),
+            "out_scale": P("ff"),
+        }
+
+    @staticmethod
+    def cache_spec(cfg):
+        return {
+            "C": P("batch", None, None, "ff"),
+            "n": P("batch", None, None),
+            "conv": P("batch", None, "ff"),
+        }
+
+    @staticmethod
     def init_cache(cfg, batch, max_len, device=None):
         M, H, m = MLSTMLayer._dims(cfg)
         f32 = dict(dtype=torch.float32, device=device)
@@ -132,7 +155,7 @@ class MLSTMLayer:
         M = 2 * cfg.d_model
         h_in = L.norm_apply(cfg, params["norm"], x)
         up = h_in @ params["w_up"].to(x.dtype)
-        return up[..., :M], up[..., M:]
+        return shard(up[..., :M], "batch", "seq", "ff"), up[..., M:]
 
     @staticmethod
     def _qkv_gates(cfg, params, xm, conv_buf):
@@ -197,7 +220,7 @@ class MLSTMLayer:
         h = L.rms_norm(h, params["out_scale"])
         h = h * F.silu(z)
         out = h @ params["w_down"].to(dt)
-        return x + out, new_cache
+        return shard(x + out, "batch", "res_seq", "dmodel"), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -233,6 +256,33 @@ class SLSTMLayer:
             "out_scale": torch.ones((D,), dtype=L.pdtype(cfg),
                                     device=gen.device),
         }
+
+    @staticmethod
+    def spec(cfg):
+        return {
+            "norm": L.norm_spec(cfg),
+            "w_gates": P("fsdp", None),
+            "r_gates": P(None, "heads", None, None),
+            "b_gates": P(None),
+            "w_up": P("fsdp", "ff"),
+            "w_down": P("ff", "fsdp"),
+            "out_scale": P(None),
+        }
+
+    @staticmethod
+    def cache_spec(cfg):
+        s = P("batch", None)
+        return {"c": s, "h": s, "n": s}
+
+    @staticmethod
+    def recurrent_flops(cfg, batch: int, seq: int) -> float:
+        """Analytic FLOPs of the sequential recurrence, the reference's
+        roofline correction for XLA counting a loop body once (the port
+        runs and counts every step, so its roofline adds none)."""
+        D, H, hd, _ = SLSTMLayer._dims(cfg)
+        per_step = 4 * H * hd * hd * 2 * batch  # block-diag recurrent matvec
+        elementwise = 12 * D * batch
+        return seq * (per_step + elementwise)
 
     @staticmethod
     def init_cache(cfg, batch, max_len, device=None):
@@ -300,7 +350,8 @@ class SLSTMLayer:
         up = h_seq @ params["w_up"].to(dt)
         gate, val = up[..., :f], up[..., f:]
         out = (L._gelu(gate) * val) @ params["w_down"].to(dt)
-        return x + out, (None if mode == "train" else state)
+        return (shard(x + out, "batch", "res_seq", "dmodel"),
+                None if mode == "train" else state)
 
 
 # ---------------------------------------------------------------------------
@@ -332,6 +383,25 @@ class RGLRULayer:
         }
 
     @staticmethod
+    def spec(cfg):
+        return {
+            "norm1": L.norm_spec(cfg),
+            "w_x": P("fsdp", "ff"),
+            "w_g": P("fsdp", "ff"),
+            "conv": P(None, "ff"),
+            "w_r": P("fsdp", "ff"),
+            "w_i": P("fsdp", "ff"),
+            "lam": P("ff"),
+            "w_o": P("ff", "fsdp"),
+            "norm2": L.norm_spec(cfg),
+            "mlp": L.mlp_spec(cfg),
+        }
+
+    @staticmethod
+    def cache_spec(cfg):
+        return {"h": P("batch", "ff"), "conv": P("batch", None, "ff")}
+
+    @staticmethod
     def init_cache(cfg, batch, max_len, device=None):
         D = cfg.d_model
         return {
@@ -347,6 +417,7 @@ class RGLRULayer:
         dt = hin.dtype
         xb = hin @ params["w_x"].to(dt)
         u, new_buf = _causal_conv(xb, params["conv"], conv_buf)
+        u = shard(u, "batch", "seq", "ff")
         r = torch.sigmoid((u @ params["w_r"].to(dt)).float())
         i = torch.sigmoid((u @ params["w_i"].to(dt)).float())
         log_a = -RGLRULayer.C_FACTOR * F.softplus(
@@ -383,9 +454,10 @@ class RGLRULayer:
             raise ValueError(f"RGLRULayer mode {mode!r}: train, prefill or "
                              f"decode")
         mix = (hs.to(dt) * gate) @ params["w_o"].to(dt)
-        x = x + mix
+        x = shard(x + mix, "batch", "res_seq", "dmodel")
         h2 = L.norm_apply(cfg, params["norm2"], x)
-        x = x + L.mlp_apply(cfg, params["mlp"], h2)
+        x = shard(x + L.mlp_apply(cfg, params["mlp"], h2),
+                  "batch", "res_seq", "dmodel")
         if mode == "train":
             return x, None
         return x, {"h": h_new, "conv": new_buf}

@@ -23,10 +23,11 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import P
 from repro_torch.tree import leaves, leaves_with_paths, map_tree
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "global_norm",
-           "decays", "STACKED"]
+           "decays", "opt_state_specs", "STACKED"]
 
 #: the port's flat layer lists, each standing for a stacked tree of the
 #: reference's (``stacks``, ``enc_stack``)
@@ -54,6 +55,10 @@ def adamw_init(params) -> Dict[str, Any]:
         "v": map_tree(zeros, params),
         "step": torch.zeros((), dtype=torch.int32, device=first.device),
     }
+
+
+def opt_state_specs(param_specs) -> Dict[str, Any]:
+    return {"m": param_specs, "v": param_specs, "step": P()}
 
 
 def global_norm(tree) -> torch.Tensor:

@@ -17,7 +17,9 @@ other's files:
   :func:`repro_torch.models.convert.train_state_from_jax` turns into the
   port's state.
 
-One device, no mesh: restoring onto a mesh waits for ROADMAP A11.
+* **Elastic restore**: leaves are stored whole, so a checkpoint restores
+  onto any mesh — ``restore_checkpoint(..., shardings=)`` places each
+  leaf with ``distribute_tensor`` (the reference's ``device_put``).
 """
 
 from __future__ import annotations
@@ -99,21 +101,33 @@ def _open(ckpt_dir, step: Optional[int]):
 
 
 def restore_checkpoint(ckpt_dir, tree_like, step: Optional[int] = None,
-                       device=None) -> Tuple[Any, int, Dict]:
+                       device=None, shardings=None) -> Tuple[Any, int, Dict]:
     """Restore into the structure of ``tree_like`` (any leaves: tensors,
     shape-only tensors or None), each leaf in its stored dtype on
-    ``device`` (default: its counterpart's device, else the CPU)."""
+    ``device`` (default: its counterpart's device, else the CPU).
+    ``shardings``, a tree of the same structure of
+    :class:`~repro_torch.distributed.sharding.NamedSharding`, re-shards
+    each leaf onto its mesh instead: a DTensor of its placements on the
+    mesh's device type (the elastic-scaling path)."""
     d, step, manifest = _open(ckpt_dir, step)
+    if shardings is None:
+        shardings = map_tree(lambda _: None, tree_like)
 
-    def load(path, like):
+    def load(path, like, sh):
         meta = manifest["leaves"][path_key(path)]
+        a = torch.from_numpy(np.load(d / "arrays" / meta["file"]))
+        if sh is not None:
+            from torch.distributed.tensor import distribute_tensor
+
+            return distribute_tensor(a.to(sh.mesh.device_type), sh.mesh,
+                                     sh.placements)
         dev = device if device is not None else (
             like.device if isinstance(like, torch.Tensor)
             and like.device.type != "meta" else "cpu")
-        a = np.load(d / "arrays" / meta["file"])
-        return torch.from_numpy(a).to(dev)
+        return a.to(dev)
 
-    return map_tree(load, tree_like, with_path=True), step, manifest["extra"]
+    return (map_tree(load, tree_like, shardings, with_path=True), step,
+            manifest["extra"])
 
 
 def read_checkpoint(ckpt_dir, step: Optional[int] = None

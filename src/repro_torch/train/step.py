@@ -76,7 +76,7 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig = AdamWConfig(),
 def build_serve_step(model: Model):
     """One decode step: greedy next token + updated caches."""
 
-    @torch.inference_mode()
+    @torch.no_grad()  # not inference_mode: DTensors refuse it
     def serve_step(params, caches, token, pos):
         logits, caches = model.decode_step(params, caches, token, pos)
         return torch.argmax(logits, dim=-1).to(torch.int32), caches
@@ -85,7 +85,7 @@ def build_serve_step(model: Model):
 
 
 def build_prefill_step(model: Model, max_len: int):
-    @torch.inference_mode()
+    @torch.no_grad()
     def prefill_step(params, batch):
         return model.prefill(params, batch, max_len)
 

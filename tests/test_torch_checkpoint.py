@@ -1,14 +1,15 @@
 """``tests/test_checkpoint.py`` on the port (``repro_torch.train.checkpoint``):
 the roundtrip, atomicity and retention cases, with the on-disk layout
 held against the JAX package's in both directions (either package
-restores the other's files, the manifests' keys and shapes equal).
-``test_elastic_restore_onto_mesh`` waits for the mesh (ROADMAP A11)."""
+restores the other's files, the manifests' keys and shapes equal), and
+the elastic restore onto a mesh (a one-rank gloo group)."""
 
 import json
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.train import checkpoint as JC
@@ -94,3 +95,36 @@ def test_layout_matches_reference(tmp_path):
                                   np.full((2,), 2.5, np.float32))
     assert int(raw["opt"]["step"]) == 5
 
+
+
+@pytest.fixture
+def one_rank_gloo():
+    """A gloo process group of this process alone, destroyed after."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    yield
+    dist.destroy_process_group()
+
+
+def test_elastic_restore_onto_mesh(tmp_path, one_rank_gloo):
+    """Checkpoints store global logical arrays → restore onto any mesh:
+    each leaf a DTensor of its sharding's placements."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.distributed.sharding import NamedSharding, P
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.tree import map_tree
+
+    t = tree()
+    save_checkpoint(tmp_path, 2, t)
+    mesh = make_mesh((1,), ("data",))
+    sh = map_tree(lambda _: NamedSharding(mesh, P()), t)
+    restored, step, _ = restore_checkpoint(tmp_path, t, shardings=sh)
+    assert step == 2
+    w = restored["params"]["w"]
+    assert isinstance(w, DTensor)
+    assert w.device_mesh == mesh and tuple(w.placements) == (Replicate(),)
+    assert torch.equal(w.full_tensor(), t["params"]["w"])
+    assert restored["opt"]["step"].to_local().dtype == torch.int32

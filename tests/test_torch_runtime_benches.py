@@ -313,7 +313,7 @@ def test_run_dispatches_overhead_and_multitenant(monkeypatch, tmp_path):
             "json_path": str(tmp_path / "BENCH_multitenant.json"),
             "smoke": False, "device": "cpu"}),
     ]
-    assert run.NOT_PORTED == {"roofline": "A11"}
+    assert run.NOT_PORTED == {}
 
 
 # ---------------------------------------------------------------------------
