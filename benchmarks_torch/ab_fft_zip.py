@@ -36,10 +36,12 @@ import hashlib, json, sys
 sys.path.insert(0, sys.argv[1] + "/src")
 sys.path.insert(1, sys.argv[2])
 import torch
-import chip_smoke
+# this side's package before chip_smoke, which puts its own src first
 from repro_torch.kernels import _build
 from repro_torch.kernels.fft import fft as F
 from repro_torch.kernels.fft import ops as fft_ops
+assert F.__file__.startswith(sys.argv[1]), F.__file__
+import chip_smoke
 _build.library()
 chip_smoke.FFT_TIMED = tuple(s for s in chip_smoke.FFT_TIMED
                              if s[1] <= F.MAX_N)

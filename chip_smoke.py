@@ -890,29 +890,44 @@ def phase_tuned_timing(dev):
     return rows
 
 
-def _device_ms_by_kernel(fn, iters: int = 10):
+def _device_ms_by_kernel(fn, iters: int = 10, per_call=None):
     """Device ms a call of ``fn`` spends in each kernel, by name (the
-    profiler's sums over ``iters`` calls); {} when it records none."""
+    profiler's sums over ``iters`` calls).  The split is whole or absent:
+    every kernel's count must be a multiple of the calls (and, given
+    ``per_call``, the kernels a call launches, their counts must sum to
+    ``iters * per_call``).  The trace occasionally comes back empty or
+    drops events, so a trace that fails that is taken again, once; None
+    ("not measured") when that fails too or the profiler cannot trace
+    the card here."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-    except Exception as e:  # a measurement, not a check: report absent
-        log(f"[timing] profiler unavailable ({type(e).__name__}: {e})")
-        return {}
-    out = {}
-    for ev in prof.key_averages():
-        t = getattr(ev, "device_time_total", 0.0)
-        if t and "kernel" in ev.key:
-            name = ev.key.split("::")[-1].split("(")[0].split("<")[0]
-            out[name] = out.get(name, 0.0) + t / iters / 1e3
-    return out
+    for _attempt in range(2):
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+        except Exception as e:  # a measurement, not a check: report absent
+            log(f"[timing] profiler unavailable ({type(e).__name__}: {e})")
+            return None
+        out, counts = {}, {}
+        for ev in prof.key_averages():
+            t = getattr(ev, "device_time_total", 0.0)
+            if t and "kernel" in ev.key:
+                name = ev.key.split("::")[-1].split("(")[0].split("<")[0]
+                out[name] = out.get(name, 0.0) + t / iters / 1e3
+                counts[name] = counts.get(name, 0) + ev.count
+        whole = bool(counts) and all(n % iters == 0 for n in counts.values())
+        if per_call is not None:
+            whole = whole and sum(counts.values()) == iters * per_call
+        if whole:
+            return out
+        log(f"[timing] the trace holds kernels {counts} for {iters} calls"
+            + (f" of {per_call} kernels" if per_call is not None else ""))
+    return None
 
 
 def _recurrent_times(kernel_fn, plain_fn, plain_iters):
@@ -3011,6 +3026,13 @@ MLSTM_BWD_CASES = (
     ((2, 96, 2, 48, 32), {"q": 16.0}),       # |den| mostly above 1
 )
 MLSTM_BWD_TOL = {"full": 1e-3, "small": 1e-4}
+#: (a) an exact tie |den| = 1: (B, S, H, m, chunk) with q_0 = (sqrt(m),
+#: 0, ...), k_0 = (1, 0, ...) and i_0 = 1 at batch 0, head 0, so den_0 =
+#: q~_0 . k_0 i_0 = 1 in float32; the kernel against
+#: mlstm_backward_plain there (JAX's rule: half the gradient reaches den)
+MLSTM_TIE_CASE = (2, 64, 2, 16, 16)
+#: (a) shapes at which two calls of the backward kernel give the same bits
+MLSTM_BITS_CASES = ((1, 1024, 4, 512, 128), (1, 96, 1, 200, 48))
 #: the RG-LRU backward kernel: bit-equal to rg_lru_backward_plain and
 #: across block_lanes, within RG_LRU_BWD_TOL * max|g| of autograd of
 #: rg_lru_plain; nonzero h0 and dh_final
@@ -3102,6 +3124,68 @@ def _mlstm_bwd_check(inp, dims, opts):
             "den_above_1": (den.abs() > 1).float().mean().item()}
 
 
+def _mlstm_tie_check(inp):
+    """MLSTM_TIE_CASE: den_0 = 1 exactly in the forward kernel's saved
+    den; the backward kernel within MLSTM_BWD_TOL["small"] of each
+    gradient's max of ``mlstm_backward_plain`` on the same saved tensors
+    (JAX's rule at the tie), and off autograd through ``mlstm_plain``
+    (torch's ``clamp_min`` passes the whole gradient) by more than
+    that."""
+    from repro_torch.kernels.mlstm import mlstm as ML
+
+    B, S, H, m, c = MLSTM_TIE_CASE
+    q, k, v, i, lf = inp.mlstm(B, S, H, m)
+    q[0, 0, 0] = 0.0
+    q[0, 0, 0, 0] = math.sqrt(m)
+    k[0, 0, 0] = 0.0
+    k[0, 0, 0, 0] = 1.0
+    i[0, 0, 0] = 1.0
+    ins = (q, k, v, i, lf)
+    with torch.no_grad():
+        h, c_in, n_in, den = ML.mlstm_kernel(*ins, chunk=c, save=True)
+    dh = inp.normal(B, S, H, m)
+    got = ML.mlstm_backward_kernel(*ins, h, c_in, n_in, den, dh, chunk=c)
+    want = ML.mlstm_backward_plain(*ins, h, c_in, n_in, den, dh, chunk=c)
+    plain = [t.clone().requires_grad_(True) for t in ins]
+    clamp = torch.autograd.grad(ML.mlstm_plain(*plain, chunk=c), plain, dh)
+    torch.cuda.synchronize()
+    if float(den[0, 0, 0]) != 1.0:
+        raise AssertionError(f"mLSTM tie: den_0 = {float(den[0, 0, 0])!r}")
+    tol = MLSTM_BWD_TOL["small"]
+    names = ("q", "k", "v", "i", "log_f")
+    errs = {n: _grad_err(g, w, tol, f"mLSTM backward at the tie d{n}")
+            for n, g, w in zip(names, got, want)}
+    off = max(float((t - w).abs().max()) / float(w.abs().max())
+              for t, w in zip(clamp, want))
+    if not off > tol:
+        raise AssertionError(f"mLSTM tie: torch's rule is within {off:.3e} "
+                             f"of JAX's, the case does not pin the tie")
+    return {"kernel": "mlstm", "shape": list(MLSTM_TIE_CASE), "tol": tol,
+            "den_0": float(den[0, 0, 0]),
+            "max_abs_err": max(e[0] for e in errs.values()),
+            "max_rel_err": {n: e[1] for n, e in errs.items()},
+            "clamp_min_rule_rel_off": off}
+
+
+def _mlstm_bits_check(inp, dims):
+    """Two calls of the backward kernel on the same inputs (with seeds of
+    the final state) give the same bits."""
+    from repro_torch.kernels.mlstm import mlstm as ML
+
+    B, S, H, m, c = dims
+    ins = inp.mlstm(B, S, H, m)
+    with torch.no_grad():
+        saved = ML.mlstm_kernel(*ins, chunk=c, save=True)
+    rest = (inp.normal(B, S, H, m), inp.normal(B, H, m, m),
+            inp.normal(B, H, m))
+    first = ML.mlstm_backward_kernel(*ins, *saved, *rest, chunk=c)
+    again = ML.mlstm_backward_kernel(*ins, *saved, *rest, chunk=c)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(first, again)):
+        raise AssertionError(f"mLSTM backward {dims}: two calls differ")
+    return {"kernel": "mlstm", "shape": list(dims), "bits_equal": True}
+
+
 def _rg_lru_bwd_check(inp, dims):
     """One case of RG_LRU_BWD_CASES through the wrapper at every
     ``block_lanes`` the clamp allows: bit-equal to
@@ -3173,15 +3257,16 @@ def _backward_timing(inp):
         fb, fp, _ = mlstm_work(B, S, H, m, c)
         bound_ms, bound_by = _bound(nbytes, 3 * flops, PEAK_TF32_PER_S)
         fwd_bound = _bound(fb, 3 * fp, PEAK_TF32_PER_S)[0]
-        # six kernels (no per-chunk update with one chunk), two forward
-        per_call = 6 if S > c else 5
+        # five kernels (prep, state, scores, grads, gates), two forward
+        per_call = 5
         out.append({
             "kernel": "mlstm_backward", "shape": [B, S, H, m, c],
             "kernel_ms": _time_ms(bwd, 5, warmup=2),
             "kernel_device_ms": _device_ms(bwd, "mlstm_bwd", iters=5,
                                            per_call=per_call),
             "device_kernels_per_call": per_call,
-            "device_ms_by_kernel": _device_ms_by_kernel(bwd, iters=3),
+            "device_ms_by_kernel": _device_ms_by_kernel(
+                bwd, iters=3, per_call=per_call),
             "fwd_bwd_ms": _time_ms(both, 3, warmup=1),
             "fwd_bwd_device_ms": _device_ms(both, "mlstm", iters=3,
                                             per_call=per_call + 2),
@@ -3219,7 +3304,9 @@ def _backward_timing(inp):
 def phase_recurrent_train(dev, out_dir: Path):
     """Phase 14: training of the recurrent families on the card.  (a) each
     backward kernel against autograd of its plain version (float32, the
-    plain version called explicitly); (b) their times; (c) the smoke()
+    plain version called explicitly), the mLSTM's also against
+    ``mlstm_backward_plain`` at an exact tie |den| = 1 and bit for bit
+    across two calls; (b) their times; (c) the smoke()
     loss gradients of xlstm-350m and recurrentgemma-2b card against CPU;
     (d) both trained at full width and depth through ``Trainer`` with the
     launches of each kernel a step exact: forward twice a layer (the step
@@ -3241,6 +3328,13 @@ def phase_recurrent_train(dev, out_dir: Path):
     if not min(shares) < 0.5 < max(shares):
         raise AssertionError(f"the mLSTM cases do not reach both sides of "
                              f"|den| = 1: {shares}")
+    records["mlstm_tie"] = _mlstm_tie_check(inp)
+    records["mlstm_bits"] = [_mlstm_bits_check(inp, d)
+                             for d in MLSTM_BITS_CASES]
+    log("[rec-train] backward at |den| = 1 " + json.dumps(
+        records["mlstm_tie"]))
+    log("[rec-train] backward bits across two calls " + json.dumps(
+        records["mlstm_bits"]))
     records["rg_lru_checks"] = [_rg_lru_bwd_check(inp, d)
                                 for d in RG_LRU_BWD_CASES]
     for r in records["mlstm_checks"] + records["rg_lru_checks"]:

@@ -140,12 +140,17 @@ class TraceCollector:
         t1: float,
         args: Optional[dict] = None,
     ) -> None:
-        """Record a completed wall-clock span; t0/t1 are perf_counter values."""
+        """Record a completed wall-clock span; t0/t1 are perf_counter values.
+        Its length is taken between the two offsets from the trace's
+        start, so that a span ending at the reading the next one starts
+        at ends exactly where that one starts (see :meth:`export`)."""
         if not self.enabled:
             return
         r = self._ring()
         if len(r.events) < r.capacity:
-            r.events.append(("X", name, cat, track, t0 - self._t0, t1 - t0, args))
+            s0 = t0 - self._t0
+            r.events.append(("X", name, cat, track, s0, (t1 - self._t0) - s0,
+                             args))
         else:
             r.drops += 1
 
@@ -402,7 +407,12 @@ class TraceCollector:
 
         raw: List[tuple] = []  # (pid, ph, name, cat, track, ts_us, dur_us, args)
         for ph, name, cat, track, t0, dur, args in wall:
-            raw.append((WALL_PID, ph, name, cat, track, t0 * 1e6, dur * 1e6, args))
+            # a wall span's end from its end offset, not ts + dur * 1e6:
+            # late in a trace the two round apart by more than the
+            # lint's tolerance, and abutting spans would overlap
+            ts = t0 * 1e6
+            raw.append((WALL_PID, ph, name, cat, track, ts,
+                        (t0 + dur) * 1e6 - ts, args))
         for ph, name, cat, track, t0, dur, args in model:
             raw.append((MODEL_PID, ph, name, cat, track, t0 * 1e6, dur * 1e6, args))
 

@@ -4,7 +4,8 @@ Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into an
 object, all of them at once, and the objects are linked into one shared
 library with a plain C interface, loaded with :mod:`ctypes`.  The
 library goes to ``build/repro_torch/`` at the repository root, keyed by
-a hash of the sources and flags, so a rebuilt checkout reuses it and an
+a hash of the sources, the ``*.cuh`` headers they include and the
+flags, so a rebuilt checkout reuses it and an
 edited source rebuilds.  The first use builds, under a lock: callers
 that time kernels (the runtime's cost model, ``chip_smoke.py``) load the
 library before they time anything.
@@ -72,8 +73,9 @@ def _sources():
 
 
 def _key(srcs) -> str:
+    """A hash of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
-    for p in srcs:
+    for p in [*srcs, *sorted(CSRC.glob("*.cuh"))]:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]

@@ -20,12 +20,16 @@ The chunk size changes the order of accumulation, so two chunk sizes
 agree only to rounding (the reference says the same).
 
 The backward has the same two versions: :func:`mlstm_backward_kernel`
-launches ``csrc/mlstm_bwd.cu`` (each chunk's own update of the state's
-gradient in parallel, an elementwise walk over the chunks from the last
-carrying it, then parallel passes per (head, chunk)), and
+launches ``csrc/mlstm_bwd.cu`` (a walk over the chunks from the last,
+in parallel over 64 x 64 tiles of the state, carries the state's
+gradient with each chunk's own update; then parallel passes per (head,
+chunk) on the tensor cores; :func:`backward_plan` is its geometry), and
 :func:`mlstm_backward_plain` is its algorithm in torch ops, held against
 autograd of :func:`mlstm_plain`.  Both read what the forward saves under
-grad (``save``): each chunk's entering state and den.
+grad (``save``): each chunk's entering state and den.  At a tie |den| =
+1 both take JAX's gradient of the reference's ``maximum(|den|, 1)``
+(half of it reaches den), where autograd of :func:`mlstm_plain`'s
+``clamp_min`` passes all of it.
 """
 
 from __future__ import annotations
@@ -38,7 +42,8 @@ import torch
 
 from .._build import check, launch, library
 
-__all__ = ["CHUNK", "MAX_CHUNK", "MAX_M", "launch_plan", "backward_work",
+__all__ = ["CHUNK", "MAX_CHUNK", "MAX_M", "launch_plan", "backward_plan",
+           "backward_work",
            "mlstm_kernel", "mlstm_plain", "mlstm_backward_kernel",
            "mlstm_backward_plain", "launches", "backward_launches"]
 
@@ -54,10 +59,19 @@ MAX_M = 1024
 #: columns of C a block of the second pass, shared-memory row strides
 THREADS, SLICE, COLS = 256, 32, 16
 QS, KS, VS = SLICE + 8, SLICE + 4, COLS + 4
+#: the backward kernel's tiles (``csrc/mlstm_bwd.cu``): columns of m a
+#: grads block owns (and the side of a state tile and of a scores tile),
+#: the grads and scores rings' depth slice, the state ring's token slice,
+#: the row strides of row-read and of column-read tiles, one B slot of
+#: the grads ring, the state and scores rings' stages
+BWD_COLS, BWD_DEPTH, BWD_TOK = 64, 16, 32
+LDA, LDK = BWD_DEPTH + 8, BWD_COLS + 4
+BSLOT = max(BWD_COLS * LDA, BWD_DEPTH * LDK)
+STATE_STAGES = SCORE_STAGES = 3
 
 #: kernel launches since the count was last set to 0
 launches = 0
-#: backward kernel launches (six kernels each) since the count was last
+#: backward kernel launches (five kernels each) since the count was last
 #: set to 0
 backward_launches = 0
 _count_lock = threading.Lock()
@@ -89,13 +103,60 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _up4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
 def backward_work(batch: int, s: int, h: int, m: int, chunk: int) -> int:
-    """float32 elements of the backward kernel's workspace: cum, 1 / D
-    and dden per token; the gradient reaching each chunk's end state (dC,
-    dn); A, dS and dA S D per chunk; the per-column-slice shares."""
+    """float32 elements of the backward kernel's workspace: cum, 1 / D,
+    dden and exp(cum) per token; the gradient reaching each chunk's end
+    state (dC, dn); A^T, dS, dS^T and dA S D per chunk, padded to cp x cp;
+    the per-column-tile shares; each part's start rounded up to 4."""
     bh, nc = batch * h, s // chunk
-    return (3 * bh * s + bh * nc * (m * m + m) + 3 * bh * nc * chunk * chunk
-            + bh * nc * -(-m // SLICE) * (2 * chunk + 1))
+    cp = -(-chunk // 16) * 16
+    return (_up4(4 * bh * s) + _up4(bh * nc * m * m) + _up4(bh * nc * m)
+            + _up4(4 * bh * nc * cp * cp)
+            + bh * nc * -(-m // BWD_COLS) * (2 * chunk + 1))
+
+
+def backward_plan(batch: int, s: int, h: int, m: int, chunk: int) -> dict:
+    """The backward kernel's geometry for one call: the chunk padded to a
+    multiple of 16 (``cp``), 16-row tiles of it, 64-column tiles of m;
+    each kernel's grid and shared memory; the grads kernel's column
+    tiles of 8 a warp (``nt``: 8 / row tiles, rounded to a power of two),
+    warp tasks (row tile x column group), ring stages (two when ``nt`` <=
+    4, so two blocks share an SM, else four) and steps (16 of m, then 16
+    of the chunk); the state kernel's walk steps (32 tokens of chunks
+    nc-1..1); and the workspace's float32 elements.  The scores and grads
+    grids run a chunk's tiles next to each other (x = chunk * tiles +
+    tile), so they share its rows in the L2 cache."""
+    cp = -(-chunk // 16) * 16
+    nc = s // chunk
+    bh = batch * h
+    col_tiles = -(-m // BWD_COLS)
+    nrt = cp // 16
+    nt = 1 if nrt == 1 else 2 if nrt == 2 else 4 if nrt <= 4 else 8
+    stages = 2 if nt <= 4 else 4
+    score_tiles = -(-cp // BWD_COLS)
+    extra = 4 * MAX_CHUNK + 2 * MAX_CHUNK + THREADS // 32
+    return {
+        "cp": cp, "chunks": nc, "col_tiles": col_tiles, "row_tiles": nrt,
+        "nt": nt, "col_groups": 8 // nt, "tasks": nrt * (8 // nt),
+        "grads_stages": stages,
+        "grads_steps": -(-m // BWD_DEPTH) + cp // BWD_DEPTH,
+        "state_steps": max(nc - 1, 0) * -(-chunk // BWD_TOK),
+        "prep_grid": (nc, bh, -(-chunk // BWD_TOK)),
+        "state_grid": (col_tiles * col_tiles, bh),
+        "scores_grid": (nc * score_tiles * score_tiles, bh),
+        "grads_grid": (nc * col_tiles, bh),
+        "gates_grid": (nc, bh),
+        "state_smem": 4 * (STATE_STAGES * (2 * BWD_TOK * LDK + 3 * BWD_TOK
+                                           + 4) + BWD_COLS * LDK),
+        "scores_smem": 4 * (SCORE_STAGES * 4 * BWD_COLS * LDA
+                            + 4 * MAX_CHUNK),
+        "grads_smem": 4 * (stages * (3 * cp * LDA + 3 * BSLOT) + extra),
+        "work": backward_work(batch, s, h, m, chunk),
+    }
 
 
 def mlstm_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -149,7 +210,7 @@ def mlstm_backward_kernel(q, k, v, i_gate, log_f, h, c_in, n_in, den, dh,
     """:func:`mlstm_backward_plain` on the card: the same arguments,
     contiguous float32 on one CUDA device (``dc``, ``dn`` None for
     zeros).  Returns (dq, dk, dv, di, dlog_f) in fresh tensors.  The
-    caller has validated them; this launches the six kernels on the
+    caller has validated them; this launches the five kernels on the
     current stream (one call, one count) and does not wait."""
     global backward_launches
     batch, s, hh, m = q.shape
@@ -243,8 +304,10 @@ def mlstm_backward_plain(q, k, v, i_gate, log_f, h, c_in, n_in, den, dh,
     and each chunk then takes its terms from its scores, its entering
     state and that gradient; d cum_t sums to dlog_f in reverse order.
     With D_t = max(|den_t|, 1), dnum_t = dh_t / D_t and dden_t =
-    -sgn(den_t) [|den_t| >= 1] (dh_t . h_t) / D_t (torch's rule for
-    ``clamp_min`` at |den| = 1)."""
+    -sgn(den_t) W_t (dh_t . h_t) / D_t, W_t = 1 where |den_t| > 1, 1/2
+    where |den_t| = 1 and 0 below: JAX's gradient of the reference's
+    ``jnp.maximum(jnp.abs(den), 1.0)``, which splits a tie evenly (torch's
+    ``clamp_min``, in :func:`mlstm_plain`, passes all of it)."""
     batch, s, hh, m = q.shape
     bh = batch * hh
     nc = s // chunk if s else 0
@@ -280,8 +343,10 @@ def mlstm_backward_plain(q, k, v, i_gate, log_f, h, c_in, n_in, den, dh,
         dj = deh[:, sl]
         big = dj.abs().clamp_min(1.0)
         dnum = gh[:, sl] / big[..., None]
-        dden = torch.where(dj.abs() >= 1.0, -torch.sign(dj), 0.0) * (
-            (gh[:, sl] * hd[:, sl]).sum(-1) / big)
+        tie = (dj.abs() > 1.0).to(dj.dtype) + 0.5 * (dj.abs() == 1.0).to(
+            dj.dtype)
+        dden = -torch.sign(dj) * tie * ((gh[:, sl] * hd[:, sl]).sum(-1)
+                                        / big)
         c0, n0 = cin[:, j], nin[:, j]
         # the chunk's scores, decays and A, the masked entries exactly 0
         scores = qc @ kc.transpose(-1, -2)

@@ -498,13 +498,17 @@ def test_wrappers_refuse_grad_on_cuda(cuda, name):
 
 @pytest.mark.parametrize("B,S,H,m,chunk,state", [
     (2, 48, 3, 40, 16, False), (1, 64, 2, 64, 64, False),
-    (1, 256, 2, 64, 32, True), (1, 1024, 4, 512, 128, False)])
+    (1, 256, 2, 64, 32, True), (1, 1024, 4, 512, 128, False),
+    # ragged edges: m past a 64-column tile, chunks not multiples of 16
+    (1, 96, 1, 200, 48, True), (1, 80, 2, 96, 40, False),
+    (1, 30, 2, 33, 10, True), (1, 240, 1, 72, 120, False),
+    (1, 256, 1, 1024, 128, True)])
 def test_mlstm_backward_kernel_matches_autograd_of_plain(cuda, B, S, H, m,
                                                          chunk, state):
     """``loss.backward()`` through ``mlstm_chunkwise`` on the card
     launches the forward and backward kernels once each and gives
     autograd's gradients through ``mlstm_plain``: each within 1e-4 of
-    its max (1e-3 at xLSTM's width, m 512)."""
+    its max (1e-3 at xLSTM's width, m >= 512)."""
     gen = torch.Generator(device=cuda).manual_seed(S + m)
     ins = [torch.randn(B, S, H, m, device=cuda, generator=gen)
            for _ in range(3)]
@@ -527,6 +531,70 @@ def test_mlstm_backward_kernel_matches_autograd_of_plain(cuda, B, S, H, m,
     for t, w in zip(leaves, want):
         err = float((t.grad - w).abs().max())
         assert err <= tol * float(w.abs().max()), (err, float(w.abs().max()))
+
+
+@pytest.mark.parametrize("B,S,H,m,chunk", [(1, 1024, 4, 512, 128),
+                                           (1, 96, 1, 200, 48)])
+def test_mlstm_backward_kernel_gives_the_same_bits_twice(cuda, B, S, H, m,
+                                                         chunk):
+    """Two calls of the backward kernel on the same inputs give the same
+    bits (nothing is summed by atomics), seeds of the final state or
+    not."""
+    gen = torch.Generator(device=cuda).manual_seed(S + m)
+    ins = [torch.randn(B, S, H, m, device=cuda, generator=gen)
+           for _ in range(3)]
+    ins += [torch.rand(B, S, H, device=cuda, generator=gen),
+            -torch.rand(B, S, H, device=cuda, generator=gen)]
+    with torch.no_grad():
+        saved = ML.mlstm_kernel(*ins, chunk=chunk, save=True)
+    dh = torch.randn(B, S, H, m, device=cuda, generator=gen)
+    seeds = (torch.randn(B, H, m, m, device=cuda, generator=gen),
+             torch.randn(B, H, m, device=cuda, generator=gen))
+    for dc, dn in ((None, None), seeds):
+        first = ML.mlstm_backward_kernel(*ins, *saved, dh, dc, dn,
+                                         chunk=chunk)
+        again = ML.mlstm_backward_kernel(*ins, *saved, dh, dc, dn,
+                                         chunk=chunk)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+
+def test_mlstm_backward_kernel_at_den_one_matches_plain(cuda):
+    """At an exact tie |den| = 1 (q_0 = (sqrt(m), 0, ...), k_0 = (1, 0,
+    ...), i_0 = 1 at batch 0, head 0) the kernel takes JAX's rule as
+    ``mlstm_backward_plain`` does, half the gradient reaching den: each
+    gradient within 1e-4 of its max of the plain version's on the same
+    saved tensors, and off torch's whole-gradient rule at the tie."""
+    B, S, H, m, chunk = 2, 64, 2, 16, 16
+    gen = torch.Generator(device=cuda).manual_seed(41)
+    q, k, v = (torch.randn(B, S, H, m, device=cuda, generator=gen)
+               for _ in range(3))
+    ig = torch.rand(B, S, H, device=cuda, generator=gen) * 0.9 + 0.05
+    lf = -torch.rand(B, S, H, device=cuda, generator=gen)
+    q[0, 0, 0] = 0.0
+    q[0, 0, 0, 0] = math.sqrt(m)
+    k[0, 0, 0] = 0.0
+    k[0, 0, 0, 0] = 1.0
+    ig[0, 0, 0] = 1.0
+    ins = (q, k, v, ig, lf)
+    with torch.no_grad():
+        h, c_in, n_in, den = ML.mlstm_kernel(*ins, chunk=chunk, save=True)
+    assert float(den[0, 0, 0]) == 1.0
+    dh = torch.randn(B, S, H, m, device=cuda, generator=gen)
+    got = ML.mlstm_backward_kernel(*ins, h, c_in, n_in, den, dh,
+                                   chunk=chunk)
+    want = ML.mlstm_backward_plain(*ins, h, c_in, n_in, den, dh,
+                                   chunk=chunk)
+    plain = [t.clone().requires_grad_(True) for t in ins]
+    clamp = torch.autograd.grad(ML.mlstm_plain(*plain, chunk=chunk),
+                                plain, dh)
+    torch.cuda.synchronize()
+    off = 0.0
+    for g, w, t in zip(got, want, clamp):
+        top = float(w.abs().max())
+        assert float((g - w).abs().max()) <= 1e-4 * top
+        off = max(off, float((t - w).abs().max()) / top)
+    assert off > 1e-3  # the tie changes the gradients
 
 
 @pytest.mark.parametrize("B,S,D", [(2, 64, 200), (2, 65, 200),

@@ -20,11 +20,16 @@ Tolerances:
   plus 1e-4 of the leaf's largest, as ``tests/test_torch_models_smoke.py``
   holds one step.
 
-Inputs stay off |den| = 1, where torch's ``clamp_min`` passes the
-gradient and JAX's ``maximum`` halves it.
+At a tie |den| = 1 the plain backward takes JAX's rule, the gradient
+of the reference's ``jnp.maximum(jnp.abs(den), 1.0)``: half of it
+reaches den, where autograd of ``mlstm_plain``'s ``clamp_min`` passes
+all of it.  So the comparisons with autograd keep every |den| off 1,
+and one case builds an exact tie and holds the port to ``jax.vjp`` of
+the JAX package's layer there.
 """
 
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -193,6 +198,81 @@ def test_mlstm_saves_nothing_without_grad():
             *[t.clone().requires_grad_(True) for t in ins], chunk=8)
     assert h2.grad_fn is None and torch.equal(h, h2)
     assert torch.equal(h, ML.mlstm_plain(*ins, chunk=8))
+
+
+def _tie_inputs(B, S, H, m, seed):
+    """q, k, v, i_gate, log_f with an exact tie at (batch 0, token 0,
+    head 0): q_0 = (sqrt(m), 0, ...), k_0 = (1, 0, ...), i_0 = 1, so
+    den_0 = (q_0 / sqrt(m)) . k_0 i_0 = 1 in float32 (m a power of 4:
+    sqrt(m) and its division exact), the entering state being zero."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((B, S, H, m)).astype(np.float32)
+               for _ in range(3))
+    i = rng.uniform(0.05, 0.95, (B, S, H)).astype(np.float32)
+    lf = -rng.uniform(0.0, 1.0, (B, S, H)).astype(np.float32)
+    q[0, 0, 0] = 0.0
+    q[0, 0, 0, 0] = math.sqrt(m)
+    k[0, 0, 0] = 0.0
+    k[0, 0, 0, 0] = 1.0
+    i[0, 0, 0] = 1.0
+    return q, k, v, i, lf
+
+
+def test_mlstm_gradients_at_den_one_match_jax_vjp(monkeypatch):
+    """At an exact tie |den| = 1 the port's mLSTM gradients (through
+    ``mlstm_chunkwise`` on the CPU, the plain backward) are JAX's, which
+    halve what reaches den there.  The reference is ``jax.vjp`` of the
+    JAX package's ``MLSTMLayer.apply(mode="train")`` -- its Pallas
+    ``mlstm_chunkwise`` has no JAX gradient (``jax.vjp`` of its
+    ``pallas_call`` fails in interpret mode) -- brought to the tie by
+    patching the layer's ``_qkv_gates`` to hand back these q, k, v, i,
+    log_f (the port's layer likewise), with the JAX layer's parameters
+    (smoke() width, 8 heads so that m = 16; rec_chunk 8, two chunks).
+    Each gradient w.r.t. q, k, v, i, log_f within ``REF_TOL`` of its
+    largest; torch's ``clamp_min`` rule misses by more."""
+    cfg = dataclasses.replace(get_config("xlstm_350m").smoke(),
+                              dtype="float32", n_heads=8)
+    jcfg = dataclasses.replace(jget_config("xlstm_350m").smoke(),
+                               dtype="float32", n_heads=8)
+    _, H, m = TR.MLSTMLayer._dims(cfg)
+    assert m == 16 and JR.MLSTMLayer._dims(jcfg)[1:] == (H, m)
+    B, S = 2, 16
+    ins = _tie_inputs(B, S, H, m, seed=31)
+    rng = np.random.default_rng(32)
+    x = rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+    gy = rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+    jp = JR.MLSTMLayer.init(jcfg, jax.random.key(33))
+
+    def jlayer(q, k, v, i, lf):
+        # the JAX layer's own _qkv_gates returns q already scaled
+        monkeypatch.setattr(JR.MLSTMLayer, "_qkv_gates", staticmethod(
+            lambda *_: (q / math.sqrt(m), k, v, i, lf, None)))
+        return JR.MLSTMLayer.apply(jcfg, jp, jnp.asarray(x),
+                                   mode="train")[0]
+
+    _, vjp = jax.vjp(jlayer, *map(jnp.asarray, ins))
+    want = [np.asarray(g) for g in vjp(jnp.asarray(gy))]
+
+    def port_grads():
+        leaves_ = [torch.from_numpy(a.copy()).requires_grad_(True)
+                   for a in ins]
+        monkeypatch.setattr(TR.MLSTMLayer, "_qkv_gates", staticmethod(
+            lambda *_: (*leaves_, None)))
+        y, _ = TR.MLSTMLayer.apply(cfg, to_torch(jp), torch.from_numpy(x),
+                                   mode="train")
+        return torch.autograd.grad(y, leaves_, torch.from_numpy(gy))
+
+    _, _, _, den = ML.mlstm_plain(*map(torch.from_numpy, ins), chunk=8,
+                                  save=True)
+    assert float(den[0, 0, 0]) == 1.0  # the tie, exactly
+    assert_grads_close(port_grads(), want, REF_TOL, "mlstm at |den| = 1")
+    # torch's rule at the tie (autograd through mlstm_plain's clamp_min)
+    # is not JAX's: the case pins the tie
+    monkeypatch.setattr(mlstm_ops, "mlstm_chunkwise",
+                        lambda *a, chunk, return_state: ML.mlstm_plain(
+                            *a, chunk=chunk, return_state=return_state))
+    with pytest.raises(AssertionError):
+        assert_grads_close(port_grads(), want, REF_TOL, "clamp_min rule")
 
 
 # ------------------------------------------------------------ RG-LRU ----

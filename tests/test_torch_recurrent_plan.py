@@ -288,3 +288,234 @@ def test_mlstm_split_tf32_products_keep_float32_accuracy():
     assert rel.max() < 2.0 ** -18
     plain = ah.astype(np.float64) * bh
     assert (np.abs(plain - exact) / np.abs(exact)).max() > 2.0 ** -12
+
+
+# ------------------------------------------------------ mLSTM backward ----
+#: (B, S, H, m, chunk): chunks 16/48/64/128 at ragged and full widths
+#: (m 40/96/200/512/1024), four chunks or one (S = chunk)
+BWD_PLANS = ([(1, 4 * c, 2, m, c) for c in (16, 48, 64, 128)
+              for m in (40, 96, 200, 512, 1024)]
+             + [(1, c, 1, m, c) for c in (16, 48, 64, 128) for m in (40, 96)])
+#: the SM's shared memory, which two blocks of the grads kernel share
+#: when its warps own 4 column tiles or fewer
+SM_SMEM = 233472
+
+
+@pytest.mark.parametrize("B,S,H,m,c", BWD_PLANS)
+def test_mlstm_backward_plan_fits_the_card(B, S, H, m, c):
+    """Each kernel's shared memory fits a block (and two grads blocks an
+    SM when nt <= 4); the grads kernel's warp tasks fit its 8 warps and
+    cover its row tiles; the grids and workspace follow the shape."""
+    plan = ML.backward_plan(B, S, H, m, c)
+    for key in ("state_smem", "scores_smem", "grads_smem"):
+        assert plan[key] <= SMEM_LIMIT, key
+    if plan["nt"] <= 4:
+        assert 2 * (plan["grads_smem"] + 1024) <= SM_SMEM
+    cp, nrt, nt = plan["cp"], plan["row_tiles"], plan["nt"]
+    assert cp % 16 == 0 and c <= cp < c + 16 and nrt == cp // 16
+    assert nt in (1, 2, 4, 8) and plan["col_groups"] * nt == 8
+    assert nrt <= plan["tasks"] <= 8 and plan["tasks"] % nrt == 0
+    nc, ct = S // c, -(-m // ML.BWD_COLS)
+    assert plan["grads_grid"] == (nc * ct, B * H)
+    assert plan["state_grid"] == (ct * ct, B * H)
+    assert plan["grads_steps"] == -(-m // ML.BWD_DEPTH) + cp // ML.BWD_DEPTH
+    assert plan["state_steps"] == (nc - 1) * -(-c // ML.BWD_TOK)
+    assert plan["work"] == ML.backward_work(B, S, H, m, c)
+
+
+def _grads_tasks(plan):
+    """(row tile, first column within the 64, nt) of each active warp."""
+    ngr = plan["col_groups"]
+    return [(w // ngr, 8 * plan["nt"] * (w % ngr), plan["nt"])
+            for w in range(plan["tasks"])]
+
+
+@pytest.mark.parametrize("B,S,H,m,c", BWD_PLANS)
+def test_mlstm_backward_every_gradient_and_share_written_once(B, S, H, m, c):
+    """The grads kernel: over the blocks of a chunk (64 columns each)
+    and their warps' fragments (rows g, g + 8, columns 2 t4, 2 t4 + 1 of
+    each column tile), every (token, column) of dq, dk and dv is written
+    once; each block's row shares are reduced through ``red`` written
+    once a (column group, row) by lanes t4 = 0, and each share of the
+    gates (q~ . Z and k . Y per token, dC : C_in per block) is written
+    once."""
+    plan = ML.backward_plan(B, S, H, m, c)
+    cp, ct = plan["cp"], plan["col_tiles"]
+    g, t4 = _lanes()
+    out = np.zeros((c, m), np.int64)
+    parts = np.zeros((ct, 2 * c + 1), np.int64)
+    for pt in range(ct):
+        a0 = pt * ML.BWD_COLS
+        red = np.zeros((plan["col_groups"], cp), np.int64)
+        for rt, n0, nt_ in _grads_tasks(plan):
+            for nt in range(nt_):
+                for h in range(2):
+                    t = 16 * rt + g + 8 * h
+                    a = a0 + n0 + 8 * nt + 2 * t4
+                    for d in range(2):  # the pair's two columns
+                        ok = (t < c) & (a + d < m)
+                        np.add.at(out, (t[ok], a[ok] + d), 1)
+            for h in range(2):
+                rows = 16 * rt + g + 8 * h
+                np.add.at(red, (n0 // (8 * nt_), rows[t4 == 0]), 1)
+        assert (red == 1).all()
+        parts[pt, :c] += 1        # threads tid < c: q~ . Z
+        parts[pt, c:2 * c] += 1   # and k . Y
+        parts[pt, 2 * c] += 1     # thread 0: dC : C_in + dn . n_in
+    assert (out == 1).all()
+    assert (parts == 1).all()
+
+
+@pytest.mark.parametrize("B,S,H,m,c", BWD_PLANS)
+def test_mlstm_backward_state_slots_written_once(B, S, H, m, c):
+    """The state kernel: each chunk's slot is written once, the seed's
+    (slot nc - 1) before the walk and slot j - 1 after chunk j's last
+    token slice; the walk's steps go chunk nc - 1 down to 1 through the
+    ring's stages in turn; a tile is staged by its warps' fragments and
+    written by rows, each (a, e) of the m x m state once, and dn's rows
+    once, by the first column tile's quads."""
+    plan = ML.backward_plan(B, S, H, m, c)
+    nc, nsc = S // c, -(-c // ML.BWD_TOK)
+    written = [nc - 1]
+    j, z, rb = nc - 1, 0, 0
+    for st in range(plan["state_steps"]):
+        assert (j, z, rb) == (nc - 1 - st // nsc, st % nsc,
+                              st % ML.STATE_STAGES)
+        if z == nsc - 1:
+            written.append(j - 1)
+        z += 1
+        if z == nsc:
+            z, j = 0, j - 1
+        rb = (rb + 1) % ML.STATE_STAGES
+    assert sorted(written) == list(range(nc))
+    g, t4 = _lanes()
+    tile = np.zeros((ML.BWD_COLS, ML.BWD_COLS), np.int64)
+    for w in range(8):
+        rt, cg = w >> 1, w & 1
+        for nt in range(4):
+            for h in range(2):
+                for d in range(2):
+                    np.add.at(tile, (16 * rt + g + 8 * h,
+                                     32 * cg + 8 * nt + 2 * t4 + d), 1)
+    assert (tile == 1).all()
+    ct = plan["col_tiles"]
+    for v in (4, 1):
+        per_row = ML.BWD_COLS // v
+        cov = np.zeros((m, m), np.int64)
+        ncov = np.zeros(m, np.int64)
+        for bx in range(plan["state_grid"][0]):
+            a0, e0 = (bx // ct) * ML.BWD_COLS, (bx % ct) * ML.BWD_COLS
+            for u in range(ML.BWD_COLS * per_row // ML.THREADS):
+                e = np.arange(ML.THREADS) + u * ML.THREADS
+                r, col = e // per_row, (e % per_row) * v
+                ok = (a0 + r < m) & (e0 + col < m)
+                for d in range(v):
+                    np.add.at(cov, (a0 + r[ok], e0 + col[ok] + d), 1)
+            if e0 == 0:
+                tid = np.arange(ML.THREADS)
+                na = a0 + (tid >> 2)
+                ok = ((tid & 3) == 0) & (na < m)
+                np.add.at(ncov, na[ok], 1)
+        if m % 4 == 0 or v == 1:
+            assert (cov == 1).all() and (ncov == 1).all()
+
+
+@pytest.mark.parametrize("B,S,H,m,c", BWD_PLANS)
+def test_mlstm_backward_scores_tiles_cover_each_matrix_once(B, S, H, m, c):
+    """The scores kernel: the (chunk, tile pair) blocks, each 64 x 64 of
+    t and s, write every entry of the cp x cp matrices A^T, dS, dS^T and
+    dA S D once: blocks above the diagonal zeros by a loop over their
+    tile, the others by their warps' fragments (rows 16 (w / 2), columns
+    32 (w % 2)); below the diagonal tile only the column tiles that reach
+    it hold products."""
+    plan = ML.backward_plan(B, S, H, m, c)
+    cp = plan["cp"]
+    nt64 = -(-cp // ML.BWD_COLS)
+    assert plan["scores_grid"] == (S // c * nt64 * nt64, B * H)
+    g, t4 = _lanes()
+    cov = np.zeros((cp, cp), np.int64)    # (t, s); the transposed planes
+    for pair in range(nt64 * nt64):       # write (s, t) of the same pairs
+        ti, si = pair // nt64, pair % nt64
+        tb, sb = ti * ML.BWD_COLS, si * ML.BWD_COLS
+        if si > ti:
+            t, s = np.meshgrid(tb + np.arange(64), sb + np.arange(64),
+                               indexing="ij")
+            ok = (t < cp) & (s < cp)
+            np.add.at(cov, (t[ok], s[ok]), 1)
+            assert (s[ok] > t[ok]).all()
+            continue
+        for w in range(8):
+            rt, cg = w >> 1, w & 1
+            r0 = tb + 16 * rt
+            if r0 >= cp:
+                continue
+            ntl = max(0, min(4, 2 * rt + 2 - 4 * cg)) if ti == si else 4
+            for nt in range(4):
+                for e in range(4):
+                    t = r0 + g + 8 * (e >> 1)
+                    s = sb + 32 * cg + 8 * nt + 2 * t4 + (e & 1)
+                    ok = (t < cp) & (s < cp)
+                    np.add.at(cov, (t[ok], s[ok]), 1)
+                    if nt >= ntl:  # skipped products: all above it
+                        assert (s > t).all()
+    assert (cov == 1).all()
+
+
+@pytest.mark.parametrize("v,w,nrows", [(4, 16, 16), (4, 16, 48), (4, 16, 64),
+                                       (4, 16, 128), (4, 64, 16),
+                                       (4, 64, 32), (1, 16, 80),
+                                       (1, 64, 16), (1, 64, 32)])
+def test_mlstm_backward_copies_cover_each_tile_once(v, w, nrows):
+    """``stage_rows``: thread tid copies V floats at column (tid % (W /
+    V)) V of rows tid / (W / V) + k kThreads / (W / V): every element of
+    an nrows x W tile once."""
+    per_row = w // v
+    step = ML.THREADS // per_row
+    cov = np.zeros((nrows, w), np.int64)
+    for tid in range(ML.THREADS):
+        i = (tid % per_row) * v
+        for r in range(tid // per_row, nrows, step):
+            cov[r, i:i + v] += 1
+    assert (cov == 1).all()
+
+
+@pytest.mark.parametrize("c", [16, 48, 64, 80, 128])
+def test_mlstm_backward_skipped_steps_hold_only_zeros(c):
+    """The grads kernel's intra products skip an 8-deep step of a warp's
+    16 rows where the masked matrix is zero throughout: dS[t][s] (dq) for
+    s > every t, dS^T and A^T (dk, dv) for t < every s; what it keeps
+    covers every nonzero of the triangle once."""
+    cp = -(-c // 16) * 16
+    mask = np.tril(np.ones((cp, cp), bool))    # [t][s], s <= t
+    used_q = np.zeros((cp, cp), np.int64)
+    used_k = np.zeros((cp, cp), np.int64)
+    for r0 in range(0, cp, 16):
+        for kg in range(0, cp, 8):
+            rows, ks = slice(r0, r0 + 16), slice(kg, kg + 8)
+            lower = kg <= r0 + 15
+            upper = kg + 7 >= r0
+            if lower:
+                used_q[rows, ks] += 1
+            else:
+                assert not mask[rows, ks].any()
+            if upper:
+                used_k[rows, ks] += 1
+            else:   # rows s, columns t of the transposed: t >= s needed
+                assert not mask.T[rows, ks].any()
+    assert (used_q[mask] == 1).all() and (used_k[mask.T] == 1).all()
+
+
+def test_mlstm_backward_ring_reuses_a_stage_after_reading_it():
+    """A ring of n stages: step st is read from stage st % n at iteration
+    st; the copy of step st + n - 1 goes, after that iteration's barrier,
+    into the stage iteration st - 1 read, so no stage is refilled before
+    its step is read (two stages and up)."""
+    for n in (2, 3, 4):
+        read_at = {}
+        for st in range(40):
+            read_at[st] = st
+            nxt = st + n - 1
+            stage = nxt % n
+            assert stage == (st - 1) % n
+            prev = nxt - n  # the step that stage held
+            assert prev < 0 or read_at[prev] < st

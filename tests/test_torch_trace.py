@@ -158,6 +158,28 @@ def _modeled_events(doc):
     return out
 
 
+def test_abutting_wall_spans_late_in_a_trace_do_not_overlap():
+    """Spans that share one ``perf_counter`` reading, the end of one and
+    the start of the next on the same exclusive track, stay exclusive
+    however far into the trace they fall: 19 s in, a float64 step of the
+    microsecond timestamps is ~4e-9 us, above ``trace_lint``'s 1e-9 us,
+    so a span's end is exported from the same rounded offset the next
+    span starts at, not as its start plus its own rounded length."""
+    tc = TraceCollector()
+    rng = np.random.default_rng(11)
+    t = tc._t0 + 19.092973
+    cats = ("compute", "writeback")
+    for i in range(4000):
+        t1 = t + float(rng.uniform(1e-6, 1e-3))
+        tc.span("join0_p15", cats[i % 2], "pe:cpu0", t, t1)
+        t = t1
+    doc = tc.export()
+    assert trace_lint(doc) == []
+    xs = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+    assert len(xs) == 4000
+    assert all(b["ts"] == a["ts"] + a["dur"] for a, b in zip(xs, xs[1:]))
+
+
 def test_modeled_trace_and_ledger_meta_equal_reference():
     """A traced serial 2FZF chain on one accelerator: the port's modeled
     events (names, tracks, start, duration, flow arrows) and its trace
