@@ -227,10 +227,12 @@ MLSTM_MODEL = dict(B=1, S=4096, H=4, m=512, chunk=64)
 # timed shapes: the model width, the autotuning ladder's largest rung
 # (8 MiB: src/repro/core/autotune.py _mlstm_inputs, _rg_lru_inputs), then
 # the recurrent path's own (phase 12: recurrentgemma-2b's and
-# xlstm-350m's prefill of 2 x 3072 and 2 x 2048 tokens)
+# xlstm-350m's prefill of 2 x 3072 and 2 x 2048 tokens, the mLSTM at the
+# reference's chunk of 256); the mLSTM also at the model width with chunk
+# 256
 RG_LRU_TIMED = ((1, 4096, 2560), (1, 2048, 512), (2, 3072, 2560))
 MLSTM_TIMED = ((1, 4096, 4, 512, 64), (1, 5376, 2, 64, 64),
-               (2, 2048, 4, 512, 128))
+               (1, 4096, 4, 512, 256), (2, 2048, 4, 512, 256))
 
 # llama3-8b decode: 8 sequences of 4096 tokens in 16-token pages
 PAGED_MODEL = dict(B=8, Hq=32, Hkv=8, d=128, page=16, n_pages=256)
@@ -243,18 +245,35 @@ SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 8, (32, 129), 32
 # (rows, N): the radar path's one-row FFTs, one row at the largest N of one
 # launch, the autotuner's 8 MiB rung (1024 rows of 1024), and one row past
 # one launch (the four-step passes): the paper suite's 16384 and 32768,
-# the kernel's largest N, and many rows of 16384 and 65536
+# 2^20, many rows of 16384 and 65536, and 2^21 (the kernel's largest N,
+# Bluestein's inner length above 2^19)
 FFT_TIMED = ((1, 128), (1, 256), (1, 512), (1, 2048), (1, 8192),
              (1024, 1024), (1, 16384), (1, 32768), (1, 1 << 20),
-             (128, 16384), (64, 65536))
+             (128, 16384), (64, 65536), (1, 1 << 21))
 
 
 def fft_sweep_rows(n: int):
     """Rows phase 3 holds the FFT kernel to at length ``n``: 1, 3, 128 and
     1024 up to one launch's 8192, 1, 3 and 128 up to 65536, then 1 and 3
-    (up to 2^20)."""
+    (up to 2^21)."""
     return ((1, 3, 128, 1024) if n <= 8192 else (1, 3, 128) if n <= 65536
             else (1, 3))
+
+
+# lengths that are not powers of two (Bluestein's algorithm over the FFT
+# and ZIP kernels: inner lengths 8 to 2^21), the radar path's 1000 and 3000
+# among them, each with the rows phase 3 holds it to
+FFT_ANY_N = (3, 12, 1000, 1536, 3000, 4095, 12289, 100000, 524287,
+             (1 << 20) - 1)
+
+
+def fft_any_rows(n: int):
+    return (1, 3, 64) if n <= 12289 else (1, 3) if n <= 100000 else (1, 2)
+
+
+# (rows, N) timed through Bluestein: the radar chains' 1000, a length one
+# below a power of two, the largest prime below 2^19, the longest N
+FFT_ANY_TIMED = ((1, 1000), (1, 4095), (1, 524287), (1, (1 << 20) - 1))
 ZIP_TIMED_N = (128, 256, 512, 131072)
 REPS = 5  # wall-time runs per main-path configuration and policy (median)
 POLICIES = ("reference", "rimms")
@@ -336,7 +355,7 @@ def phase_kernels(dev):
                            generator=gen)
 
     errs = {"fft": 0.0, "zip": 0.0}
-    for n in (2 ** p for p in range(1, 21)):
+    for n in (2 ** p for p in range(1, 22)):
         rtol, atol = fft_tol(n)
         worst_plain = worst_lib = 0.0
         for rows in fft_sweep_rows(n):
@@ -368,6 +387,8 @@ def phase_kernels(dev):
             f"8/32/128 bit-identical; "
             f"input unwritten")
         errs["fft"] = max(errs["fft"], worst_plain)
+    errs["fft_bluestein"] = _bluestein_checks(crandn)
+    errs["fft"] = max(errs["fft"], errs["fft_bluestein"])
     # fragments: views at a nonzero storage offset, one at an odd element
     # (8 bytes past a 16-byte boundary) and rows of a 2-D view
     base = crandn(4 * 2048 + 1)
@@ -430,6 +451,55 @@ def phase_kernels(dev):
         raise AssertionError("zip wrote into its inputs")
     torch.cuda.synchronize()
     return errs
+
+
+def _bluestein_checks(crandn) -> float:
+    """The FFT at lengths that are not powers of two (:data:`FFT_ANY_N`),
+    forward and inverse: the kernels' composition against the same
+    composition over the plain versions, and against numpy's complex128
+    FFT, both at the power-of-two tolerance of its inner length (an
+    inverse times n); bit-identical across block_rows; the input
+    unwritten.  Returns the worst error against the plain version."""
+    from repro_torch.kernels.fft import bluestein as BL
+    from repro_torch.kernels.fft import ops as fft_ops
+
+    worst = 0.0
+    for n in FFT_ANY_N:
+        rtol, atol = fft_tol(BL.inner_length(n))
+        atol = rtol * math.sqrt(n)
+        w_plain = w_np = 0.0
+        for rows in fft_any_rows(n):
+            x = crandn(rows, n)
+            before = x.clone()
+            x64 = x.cpu().numpy().astype(np.complex128)
+            for fwd in (True, False):
+                got = fft_ops.fft(x, fwd)
+                torch.cuda.synchronize()
+                what = f"fft n={n} rows={rows} {'fwd' if fwd else 'inv'}"
+                s = 1 if fwd else n
+                w_plain = max(w_plain, close(
+                    got * s, BL.bluestein_plain(x, inverse=not fwd) * s,
+                    rtol, atol, what + " vs plain (inverse times n)"))
+                ref = torch.from_numpy(
+                    np.fft.fft(x64) if fwd else np.fft.ifft(x64) * n)
+                w_np = max(w_np, close(
+                    (got.cpu() * s).to(torch.complex128), ref, rtol, atol,
+                    what + " vs numpy complex128 (inverse times n)"))
+                for br in (32, 128):
+                    if not torch.equal(fft_ops.fft(x, fwd, block_rows=br),
+                                       got):
+                        raise AssertionError(f"{what}: block_rows={br} not "
+                                             f"bit-identical")
+            if not torch.equal(x, before):
+                raise AssertionError(f"fft n={n} rows={rows} wrote its input")
+        log(f"[kernels] fft n={n} (Bluestein, inner "
+            f"{BL.inner_length(n)}) rows "
+            f"{'/'.join(map(str, fft_any_rows(n)))} fwd+inv (inverse times "
+            f"n): max|err| vs plain {w_plain:.3e}, vs numpy complex128 "
+            f"{w_np:.3e} (rtol {rtol}, atol {atol:.2e}); block_rows "
+            f"8/32/128 bit-identical; input unwritten")
+        worst = max(worst, w_plain)
+    return worst
 
 
 # ------------------------------------------------------------- 4. timing
@@ -601,6 +671,7 @@ def phase_timing(dev):
                 32.0 * nrows * n + 8.0 * n, 0.0)[0]
         rows.append(rec)
         log("[timing] " + json.dumps(rec))
+    rows += _bluestein_timing(dev, gen)
     for n in ZIP_TIMED_N:
         a = torch.randn(n, dtype=torch.complex64, device=dev, generator=gen)
         b = torch.randn(n, dtype=torch.complex64, device=dev, generator=gen)
@@ -615,6 +686,65 @@ def phase_timing(dev):
     return rows
 
 
+def _bluestein_timing(dev, gen):
+    """The FFT through Bluestein at :data:`FFT_ANY_TIMED`: a call is two
+    FFT launches (each one or two kernels) and three ZIP launches, beside
+    the zero fill and copies of the padding; its device time sums every
+    kernel and copy of the call (:func:`_device_ms_all`), and the launch
+    counters count a call's launches.  The bound is the DFT's own (one
+    pass over the data, 5 N log2 N flops); the library call is
+    ``torch.fft.fft`` at the same N.  Also the peak memory a call adds
+    (its workspace) and how far the kernels' result is from the plain
+    composition's."""
+    from repro_torch.kernels.fft import bluestein as BL
+    from repro_torch.kernels.fft import fft as F
+    from repro_torch.kernels.fft import ops as fft_ops
+    from repro_torch.kernels.zip import zip as Z
+
+    rows = []
+    for nrows, n in FFT_ANY_TIMED:
+        x = torch.randn(nrows, n, dtype=torch.complex64, device=dev,
+                        generator=gen)
+        call = lambda: fft_ops.fft(x)  # noqa: E731
+        call()
+        torch.cuda.synchronize()
+        f0, z0 = F.launches, Z.launches
+        call()
+        launches = {"fft": F.launches - f0, "zip": Z.launches - z0}
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = call()
+        torch.cuda.synchronize()
+        workspace = torch.cuda.max_memory_allocated() - base
+        err = max_err(got, BL.bluestein_plain(x, inverse=False))
+        dev_ms, per_call = _device_ms_all(call, iters=20)
+        bound_ms, bound_by = _bound(16.0 * nrows * n,
+                                    5.0 * nrows * n * math.log2(n))
+        iters = 200 if n < 1 << 16 else 50
+        lib_dev, lib_kernels = _device_ms_all(lambda: torch.fft.fft(x))
+        rec = {"kernel": "fft", "route": "bluestein", "rows": nrows, "n": n,
+               "inner_n": BL.inner_length(n), "launches_per_call": launches,
+               "kernel_ms": _time_ms(call, iters),
+               "kernel_sync_ms": _sync_ms(call, iters=100),
+               "kernel_enqueue_ms": _enqueue_ms(call, iters=100),
+               "kernel_device_ms": dev_ms,
+               "kernel_device_kernels_per_call": per_call,
+               "workspace_bytes": workspace, "max_abs_err_vs_plain": err,
+               "library_ms": _time_ms(lambda: torch.fft.fft(x), iters),
+               "library_sync_ms": _sync_ms(lambda: torch.fft.fft(x),
+                                           iters=100),
+               "library_device_ms": lib_dev,
+               "library_device_kernels_per_call": lib_kernels,
+               "plain_ms": _time_ms(
+                   lambda: BL.bluestein_plain(x, inverse=False), 5,
+                   warmup=2),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        rows.append(rec)
+        log("[timing] " + json.dumps(rec))
+    return rows
+
+
 # ------------------------------------------ 3. kernels: the tuned ones
 # tests/test_kernels.py's sweeps and tolerances
 FLASH_SWEEP = ((2, 256, 4, 2, 64, 128, 128, torch.float32),
@@ -622,7 +752,27 @@ FLASH_SWEEP = ((2, 256, 4, 2, 64, 128, 128, torch.float32),
                (2, 128, 4, 4, 64, 64, 64, torch.bfloat16),
                (1, 384, 2, 2, 64, 128, 128, torch.float32))
 RG_LRU_SWEEP = ((2, 32, 128), (3, 64, 200), (1, 128, 256))
-MLSTM_SWEEP = ((2, 64, 2, 128, 16), (1, 32, 4, 64, 8), (1, 128, 1, 128, 64))
+MLSTM_SWEEP = ((2, 64, 2, 128, 16), (1, 32, 4, 64, 8), (1, 128, 1, 128, 64),
+               # chunks above 128 (row blocks of 128 in the first pass,
+               # slices of 16 in the second): the reference's 256, one
+               # that is not a multiple of 16 or of 128, the largest m
+               (1, 512, 2, 64, 256), (1, 400, 1, 40, 200),
+               (1, 512, 1, 1024, 256))
+
+
+# head widths the kernel runs at a padded compiled width (32 at 64, 80 and
+# 96 at 128, 256 at its own), both types, causal and not, ragged S; widths
+# that take the element-wise loads (bf16 36, float32 33); and one call of
+# B * Hq > 65535 (the grid's x dimension holds it)
+FLASH_WIDTHS = [((1, 384, 4, 2, d, 128, 128, dt), causal)
+                for d in (32, 80, 96, 256)
+                for dt in (torch.bfloat16, torch.float32)
+                for causal in (True, False)]
+FLASH_WIDTHS += [((1, 200, 2, 1, 36, 64, 100, torch.bfloat16), True),
+                 ((2, 130, 2, 2, 33, 64, 64, torch.float32), False),
+                 ((2, 64, 32800, 4100, 32, 64, 64, torch.bfloat16), True)]
+# phase 4's widths: the model's, then 96 and 256 at its shape
+FLASH_TIMED_D = (FLASH_MODEL["d"], 96, 256)
 
 
 def flash_tol(dtype):
@@ -675,6 +825,7 @@ def phase_tuned_kernels(dev):
     flash_cases.append(((1, 128, 2, 2, 64, 64, 64, torch.float32), False))
     flash_cases += [((m["B"], m["S"], m["Hq"], m["Hkv"], m["d"], 256, 256,
                       dt), True) for dt in (torch.bfloat16, torch.float32)]
+    flash_cases += FLASH_WIDTHS
     for (B, S, Hq, Hkv, d, bq, bk, dt), causal in flash_cases:
         q, k, v = inp.flash(B, S, Hq, Hkv, d, dt)
         got = flash_ops.flash_attention(q, k, v, causal=causal, block_q=bq,
@@ -742,7 +893,8 @@ def phase_tuned_kernels(dev):
     # the autotuner's chunk candidates, also at the model width and the
     # ladder's top rung: each within 2e-3 of plain and of chunk 64, but
     # not bit for bit
-    for B, S, H, hw in [(1, 512, 2, 64)] + [t[:4] for t in MLSTM_TIMED]:
+    for B, S, H, hw in dict.fromkeys([(1, 512, 2, 64)]
+                                     + [t[:4] for t in MLSTM_TIMED]):
         ins = inp.mlstm(B, S, H, hw)
         base = mlstm_ops.mlstm_chunkwise(*ins, chunk=64)
         for c in (32, 64, 128):
@@ -845,12 +997,13 @@ def phase_tuned_timing(dev):
     inp = Inputs(dev, 3)
     rows = []
     m = FLASH_MODEL
-    B, S, Hq, Hkv, d = m["B"], m["S"], m["Hq"], m["Hkv"], m["d"]
+    B, S, Hq, Hkv = m["B"], m["S"], m["Hq"], m["Hkv"]
     # bf16 at the bf16 tensor-core rate; float32 at the FP32 rate, the
     # arithmetic the kernel must keep (2e-4 rules out TF32), with the
-    # TF32 tensor-core figure beside it
-    for dt, peak in ((torch.bfloat16, PEAK_BF16_PER_S),
-                     (torch.float32, PEAK_FP32_PER_S)):
+    # TF32 tensor-core figure beside it; the bound counts the true d
+    for d, (dt, peak) in ((d, dp) for d in FLASH_TIMED_D for dp in (
+            (torch.bfloat16, PEAK_BF16_PER_S),
+            (torch.float32, PEAK_FP32_PER_S))):
         q, k, v = inp.flash(B, S, Hq, Hkv, d, dt)
         esize = q.element_size()
         nbytes = esize * (2 * q.numel() + 2 * k.numel())
@@ -860,7 +1013,8 @@ def phase_tuned_timing(dev):
                  if dt == torch.float32 else {})
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         rec = {
-            "kernel": "flash_attention", "dtype": str(dt)[6:],
+            "kernel": "flash_attention", "dtype": str(dt)[6:], "d": d,
+            "padded_d": FA.padded_width(d),
             "shape": f"B{B} S{S} Hq{Hq} Hkv{Hkv} d{d} causal",
             "kernel_ms": _time_ms(
                 lambda: flash_ops.flash_attention(q, k, v), 50, warmup=5),
@@ -1191,26 +1345,37 @@ def _fzf_points(points, n):
 
 class DeviceTaskCounter:
     """fft/ifft and zip tasks the runtimes placed on GPU/accelerator
-    PEs, from their task logs (task names carry the op as prefix)."""
+    PEs, from their task logs (task names carry the op as prefix), and
+    the kernel launches they make: one a task, but an FFT task of a
+    length that is not a power of two (``n``, the chain's length) is
+    Bluestein's two FFT and three ZIP launches."""
 
     def __init__(self):
         self.fft = 0
         self.zip = 0
+        self.fft_bluestein = 0
 
-    def add(self, task_log):
+    def add(self, task_log, n=None):
+        bluestein = n is not None and n & (n - 1) != 0
         for name, pe in task_log:
             if pe.startswith("cpu"):
                 continue
             if name.startswith(("fft", "ifft")):
                 self.fft += 1
+                self.fft_bluestein += bluestein
             elif name.startswith("zip"):
                 self.zip += 1
             else:
                 raise AssertionError(f"unexpected task {name!r} on {pe}")
 
+    def launches(self):
+        """The FFT and ZIP kernel launches these tasks make."""
+        return {"fft": self.fft + self.fft_bluestein,
+                "zip": self.zip + 3 * self.fft_bluestein}
+
 
 def _compare(build, counter, *, device, accelerators=("gpu0",), n_cpu=1,
-             reps=REPS):
+             reps=REPS, n=None):
     """Run one chain under both memory policies, in turns (reference,
     rimms, rimms, reference, ...), each time on a fresh runtime.  Returns
     ``{policy: (record, ctx, bufs)}`` of each policy's last run; the
@@ -1228,7 +1393,7 @@ def _compare(build, counter, *, device, accelerators=("gpu0",), n_cpu=1,
             bufs, tasks = build(ctx)
             wall = run_pipeline(rt, tasks, mode="serial")
             walls[policy].append(wall)
-            counter.add(rt.task_log)
+            counter.add(rt.task_log, n)
             last[policy] = (rt, ctx, bufs, wall)
     out = {}
     for policy, (rt, ctx, bufs, wall) in last.items():
@@ -1295,7 +1460,8 @@ def phase_main(device, *, fft_sizes=(64, 128, 256, 512, 1024, 2048),
                fzf_sizes=(32, 64, 128, 256, 512, 1024, 2048),
                zip_sizes=tuple(2 ** k for k in (7, 9, 11, 13, 15, 17)),
                pd=(128, 128), sar_scale=1, session_chains=16,
-               session_n=2048, reps=REPS, counter=None):
+               session_n=2048, any_sizes=(1000, 3000), any_chains=4,
+               reps=REPS, counter=None):
     from repro_torch.apps import radar
     from repro_torch.core.hete import hete_sync
 
@@ -1303,12 +1469,13 @@ def phase_main(device, *, fft_sizes=(64, 128, 256, 512, 1024, 2048),
     results = []
 
     def drive(app, build, want_counts=None, *, accelerators=("gpu0",),
-              n_cpu=1, expected=None):
+              n_cpu=1, expected=None, n=None):
         """Compare both policies on ``build``; check every output against
         numpy (``expected(bufs)`` -> [(HeteData, want)]) and the copy
         counts; record the report line."""
         runs = _compare(build, counter, device=device,
-                        accelerators=accelerators, n_cpu=n_cpu, reps=reps)
+                        accelerators=accelerators, n_cpu=n_cpu, reps=reps,
+                        n=n)
         for policy, (_, ctx, bufs) in runs.items():
             for i, (out, want) in enumerate(expected(bufs)):
                 _check_out(hete_sync(out, context=ctx), want, want.size,
@@ -1324,22 +1491,23 @@ def phase_main(device, *, fft_sizes=(64, 128, 256, 512, 1024, 2048),
     # 2FFT sweep (paper Fig 5): ACC-ACC and CPU-ACC
     for scen, pins, counts in (("acc_acc", ("gpu0", "gpu0"), (4, 1)),
                                ("cpu_acc", ("cpu0", "gpu0"), "minus_one")):
-        for n in fft_sizes:
+        for n in (*fft_sizes, *any_sizes):
             drive(f"2fft_{scen}_n{n}",
                   lambda c, n=n, pins=pins: radar.build_2fft(c, n, pins=pins,
                                                              seed=n),
                   counts,
                   expected=lambda b: one(b, lambda b: np.fft.ifft(
-                      np.fft.fft(b["in"].data.copy()))))
+                      np.fft.fft(b["in"].data.copy()))), n=n)
 
-    # 2FZF sweep (paper Table 1), accelerator only
-    for n in fzf_sizes:
+    # 2FZF sweep (paper Table 1), accelerator only; range lengths that are
+    # not powers of two (Bluestein's launches) after the paper's
+    for n in (*fzf_sizes, *any_sizes):
         drive(f"2fzf_acc_n{n}",
               lambda c, n=n: radar.build_2fzf(c, n, pins=("gpu0",) * 4,
                                               seed=n),
               (9, 2),
               expected=lambda b: one(b, lambda b: _np_fzf(
-                  b["a"].data.copy(), b["b"].data.copy())))
+                  b["a"].data.copy(), b["b"].data.copy())), n=n)
 
     # 3ZIP sweep (paper Fig 8), GPU only
     def zip3_want(b):
@@ -1369,35 +1537,38 @@ def phase_main(device, *, fft_sizes=(64, 128, 256, 512, 1024, 2048),
           expected=lambda b: (_fzf_points(b["phase1"], 256)
                               + _fzf_points(b["phase2"], 512)))
 
-    # one streaming Session: 16 2FZF chains at n = 2048, windowed HEFT
-    res = {}
-    for policy in POLICIES:
-        with radar.make_session(policy=policy, scheduler="heft",
-                                device=device) as s:
-            t0 = time.perf_counter()
-            chains = [radar.submit_2fzf(s, session_n, seed=100 + i,
-                                        tag=f"_{i}")
-                      for i in range(session_chains)]
-            outs = [c["out"].result().copy() for c in chains]
-            s.barrier()
-            wall = time.perf_counter() - t0
-            for i, (c, got) in enumerate(zip(chains, outs)):
-                _check_out(got, _np_fzf(c["a"].data.copy(),
-                                        c["b"].data.copy()),
-                           session_n, f"session chain {i}")
-            counter.add(s.runtime.task_log)
-            rep = s.report()
-            res[policy] = {
-                "wall_s": wall, "copies": s.ledger.total_copies,
-                "bytes": {f"{a}->{b}": v for (a, b), v
-                          in sorted(s.ledger.bytes_moved.items())},
-                "model_s": rep["makespan_model"],
-                "tasks": len(s.runtime.task_log), "kernel_share": None,
-                "task_compute_us": _task_compute_us(
-                    rep["timeline"].events()),
-            }
-        s.runtime.close()
-    results.append(_report(f"session_2fzf_{session_chains}x{session_n}", res))
+    # streaming Sessions, windowed HEFT: 16 2FZF chains at n = 2048, then a
+    # few at each range length that is not a power of two
+    for chains_n, sn in ((session_chains, session_n),
+                         *((any_chains, n) for n in any_sizes)):
+        res = {}
+        for policy in POLICIES:
+            with radar.make_session(policy=policy, scheduler="heft",
+                                    device=device) as s:
+                t0 = time.perf_counter()
+                chains = [radar.submit_2fzf(s, sn, seed=100 + i,
+                                            tag=f"_{i}")
+                          for i in range(chains_n)]
+                outs = [c["out"].result().copy() for c in chains]
+                s.barrier()
+                wall = time.perf_counter() - t0
+                for i, (c, got) in enumerate(zip(chains, outs)):
+                    _check_out(got, _np_fzf(c["a"].data.copy(),
+                                            c["b"].data.copy()),
+                               sn, f"session n={sn} chain {i}")
+                counter.add(s.runtime.task_log, sn)
+                rep = s.report()
+                res[policy] = {
+                    "wall_s": wall, "copies": s.ledger.total_copies,
+                    "bytes": {f"{a}->{b}": v for (a, b), v
+                              in sorted(s.ledger.bytes_moved.items())},
+                    "model_s": rep["makespan_model"],
+                    "tasks": len(s.runtime.task_log), "kernel_share": None,
+                    "task_compute_us": _task_compute_us(
+                        rep["timeline"].events()),
+                }
+            s.runtime.close()
+        results.append(_report(f"session_2fzf_{chains_n}x{sn}", res))
     return results, counter
 
 
@@ -2347,9 +2518,12 @@ def _path_kernel_check(model, params, prompt, arch):
 def _path_kernel_bound(arch, B, S, cfg):
     """The least time one call of the model's kernel could take at the
     path's shape (phase 4's bounds)."""
+    from repro_torch.models.recurrent import MLSTMLayer
+
     if RECURRENT_KERNEL[arch][0] == "mlstm":
         H, m = cfg.n_heads, 2 * cfg.d_model // cfg.n_heads
-        nbytes, products, _ = mlstm_work(B, S, H, m, min(cfg.rec_chunk, 128))
+        nbytes, products, _ = mlstm_work(B, S, H, m,
+                                         MLSTMLayer.prefill_chunk(cfg, S))
         return _bound(nbytes, 3 * products, PEAK_TF32_PER_S)
     D = cfg.d_model
     return _bound(4.0 * (3 * B * S * D + 2 * B * D), 2.0 * B * S * D)
@@ -3017,7 +3191,10 @@ def phase_moe_audio_train(dev, out_dir: Path):
 MLSTM_BWD_CASES = (
     ((1, 4096, 4, 512, 64), {}),       # xlstm-350m width
     ((1, 4096, 4, 512, 128), {}),
-    ((1, 1024, 4, 512, 128), {}),      # the training path's (d)
+    ((1, 4096, 4, 512, 256), {}),      # the reference's chunk
+    ((1, 1024, 4, 512, 256), {}),      # the training path's (d)
+    ((1, 400, 1, 40, 200), {}),        # a chunk past 128, not of 16
+    ((1, 512, 2, 64, 256), {"state": True}),  # seeds dC, dn at 256
     ((2, 48, 3, 40, 16), {}),          # m, S not multiples of 16 or 32
     ((1, 64, 2, 64, 64), {}),          # one chunk
     ((1, 256, 2, 64, 32), {"state": True}),  # seeds dC, dn
@@ -3032,16 +3209,19 @@ MLSTM_BWD_TOL = {"full": 1e-3, "small": 1e-4}
 #: mlstm_backward_plain there (JAX's rule: half the gradient reaches den)
 MLSTM_TIE_CASE = (2, 64, 2, 16, 16)
 #: (a) shapes at which two calls of the backward kernel give the same bits
-MLSTM_BITS_CASES = ((1, 1024, 4, 512, 128), (1, 96, 1, 200, 48))
+MLSTM_BITS_CASES = ((1, 1024, 4, 512, 256), (1, 1024, 4, 512, 128),
+                    (1, 96, 1, 200, 48))
 #: the RG-LRU backward kernel: bit-equal to rg_lru_backward_plain and
 #: across block_lanes, within RG_LRU_BWD_TOL * max|g| of autograd of
 #: rg_lru_plain; nonzero h0 and dh_final
 RG_LRU_BWD_CASES = ((1, 4096, 2560), (2, 3072, 2560), (2, 64, 200),
                     (2, 65, 200))
 RG_LRU_BWD_TOL = 1e-5
-#: (b) timed: the mLSTM forward + backward at xlstm-350m width and at the
-#: training path's shape; the RG-LRU backward at recurrentgemma-2b width
-MLSTM_BWD_TIMED = ((1, 4096, 4, 512, 64), (1, 1024, 4, 512, 128))
+#: (b) timed: the mLSTM forward + backward at xlstm-350m width (chunk 64
+#: and the reference's 256) and at the training path's shape (chunk 256);
+#: the RG-LRU backward at recurrentgemma-2b width
+MLSTM_BWD_TIMED = ((1, 4096, 4, 512, 64), (1, 4096, 4, 512, 256),
+                   (1, 1024, 4, 512, 256))
 RG_LRU_BWD_TIMED = (1, 4096, 2560)
 #: (d) full width and depth through Trainer, the batch cut from 256 to 1:
 #: recurrentgemma-2b on train_4k's 4096 tokens, xlstm-350m on 1024 (its
@@ -4067,21 +4247,33 @@ def main() -> int:
     # launches are not counted
     phase_main(None, fft_sizes=(64,), fzf_sizes=(64,), zip_sizes=(128,),
                pd=(4, 128), sar_scale=64, session_chains=1, session_n=64,
-               reps=1)
+               any_sizes=(1000,), any_chains=1, reps=1)
+    # Bluestein's tables of the path's lengths (one FFT launch each when
+    # built) are built outside the counted run, as the twiddles are
+    from repro_torch.kernels.fft import bluestein
+    for n in (1000, 3000):
+        for inverse in (False, True):
+            bluestein.tables(n, inverse, dev)
     reset_counts()
     t0 = time.perf_counter()
     results, counter = phase_main(None)
     main_s = time.perf_counter() - t0
     launches = read_counts()
     log(f"[main] {len(results)} configurations in {main_s:.1f}s; "
-        f"device tasks fft/ifft {counter.fft}, zip {counter.zip}; "
+        f"device tasks fft/ifft {counter.fft} (of them at lengths that are "
+        f"not powers of two {counter.fft_bluestein}), zip {counter.zip}; "
         f"kernel launches {launches}")
     if launches["fft"] <= 0 or launches["zip"] <= 0:
         raise AssertionError(f"a kernel never ran on the main path: {launches}")
-    if (launches["fft"], launches["zip"]) != (counter.fft, counter.zip):
+    if counter.fft_bluestein <= 0:
+        raise AssertionError("no FFT task at a length that is not a power of "
+                             "two ran on the main path")
+    want = counter.launches()
+    if (launches["fft"], launches["zip"]) != (want["fft"], want["zip"]):
         raise AssertionError(
-            f"launch counts {launches} != device tasks "
-            f"fft {counter.fft}, zip {counter.zip}")
+            f"launch counts {launches} != what the device tasks launch "
+            f"{want} (fft/ifft tasks {counter.fft}, {counter.fft_bluestein} "
+            f"of them through Bluestein; zip tasks {counter.zip})")
 
     t0 = time.perf_counter()
     calib, dispatch, _, path_shapes = phase_autotune(dev)
@@ -4237,12 +4429,21 @@ def main() -> int:
                         "prefill_busy_share")}
                     for rec in recurrent.values() if rec["kernel"] == kname)}
                if kname in ("mlstm", "rg_lru") else {}),
+            # flash attention: every timed width and type
+            **({"timed_shapes": [
+                {k: r.get(k) for k in (
+                    "shape", "dtype", "d", "padded_d", "kernel_ms",
+                    "kernel_device_ms", "plain_ms", "library_ms", "bound_ms",
+                    "bound_by")}
+                for r in timing if r["kernel"] == kname]}
+               if kname == "flash_attention" else {}),
             # FFT: every timed shape, one launch up to 8192 and the
             # four-step's two past it; FFT and ZIP: the paper suite's
             # launches (phase 10)
             **({"timed_shapes": [
                 {k: r.get(k) for k in (
-                    "rows", "n", "kernel_ms", "kernel_sync_ms",
+                    "rows", "n", "route", "inner_n", "launches_per_call",
+                    "workspace_bytes", "kernel_ms", "kernel_sync_ms",
                     "kernel_device_ms", "library_ms", "library_device_ms",
                     "plain_ms", "bound_ms", "bound_by", "bound_two_pass_ms",
                     "bound_two_pass_twiddles_ms")}

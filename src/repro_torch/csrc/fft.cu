@@ -3,9 +3,14 @@
 //
 // Replaces the Pallas kernel src/repro/kernels/fft/fft.py::_fft_kernel
 // (launched by fft_planes): the forward DFT along each row, or the inverse
-// scaled by 1/N, of N = 2^p complex values, p from 1 to 20, in natural
+// scaled by 1/N, of N = 2^p complex values, p from 1 to 21, in natural
 // order: one launch of fft_rows up to N = 8192, two of fft_four_step above
-// (see "Above 8192" at the end of this note).  The inverse is computed as
+// (see "Above 8192" at the end of this note).  A length that is not a
+// power of two never reaches this file as such: the wrapper
+// (kernels/fft/bluestein.py) composes it from launches of this kernel and
+// of zip.cu (Bluestein's chirp-z algorithm: chirp, FFT of length M = the
+// power of two >= 2N - 1, the filter's spectrum, inverse FFT, chirp), so
+// N = 2^20 - 1 takes inner transforms of 2^21 -- the reason for p 21.  The inverse is computed as
 // conj(fft(conj x)) / N: the input is conjugated as it is loaded and the
 // output as it is stored, which negates exactly and so equals conjugating
 // every twiddle.
@@ -67,17 +72,21 @@
 // Above 8192.  A row of 16384 or more complex64 values (128 KB) no longer
 // fits a block's two exchange buffers, and a 32768-point row alone (256 KB)
 // is more than the 228 KB of an SM's shared memory, so N = N1 N2 (N1 =
-// 2^ceil(p/2), N2 = 2^floor(p/2), both <= 1024 up to N = 2^20) goes through
+// 2^ceil(p/2), N2 = 2^floor(p/2): 2048 x 1024 at N = 2^21, both <= 1024
+// below) goes through
 // the four-step (Bailey) algorithm in two launches of fft_four_step, with
 // the row seen as N1 x N2 (element n1 N2 + n2):
 //   pass 1: the N1-point DFT of each column n2, times w_N^(n2 k1), into a
 //           workspace row of the wrapper's at k1 N2 + n2;
 //   pass 2: the N2-point DFT of each workspace row k1, into the output at
 //           k1 + N1 k2 -- the transposed, natural order.
-// Each block takes kTile = 8 adjacent lines (columns in pass 1, workspace
+// Each block takes 8 adjacent lines (columns in pass 1, workspace
 // rows in pass 2) so every strided load and store is a 64-byte run of
-// adjacent lines: whole sectors.  The block copies its lines into shared
-// memory, runs the same register passes on them as fft_rows (thread layout,
+// adjacent lines: whole sectors.  Lines of 2048 (pass 1 at N = 2^21) go 4
+// a block: 8 would take 1024 threads and 256 KB of exchange buffers, 4
+// take 512 threads and 128 KB, and a 32-byte run is still a whole sector.
+// The block copies its lines into shared memory, runs the same register
+// passes on them as fft_rows (thread layout,
 // twiddle tables and swizzle of an N1- or N2-point row), and copies the
 // result out; the step twiddles w_N^(n2 k1) come from a table of N entries
 // laid out as the workspace (computed in float64 and rounded once by the
@@ -94,12 +103,16 @@
 namespace {
 
 constexpr int kMaxLog = 13;     // one launch of fft_rows
-constexpr int kMaxLog4 = 20;    // two launches of fft_four_step
+constexpr int kMaxLog4 = 21;    // two launches of fft_four_step
 constexpr int kMaxThreads = 512;
 constexpr int kMaxDevices = 64;
-// lines a four-step block takes side by side: 8 complex64 = 64 bytes
+// lines a four-step block takes side by side: 8 complex64 = 64 bytes (log2)
 constexpr int kTileLog = 3;
-constexpr int kTile = 1 << kTileLog;
+// log2 of the lines a four-step block takes for lines of 2^log: 8, and
+// half as many for 2048 (the launch bound's 512 threads, 128 KB)
+__host__ __device__ constexpr int tile_log(int log) {
+  return log > 10 ? kTileLog - 1 : kTileLog;
+}
 
 // log2 of the values a thread holds for rows of 2^log (radix 8 up to 512)
 __host__ __device__ constexpr int values_log(int log) {
@@ -311,11 +324,11 @@ __global__ void __launch_bounds__(kMaxThreads)
 }
 
 // One pass of the four-step FFT of rows of N = 2^LOG M (M = 2^mlog lines
-// of 2^LOG a row).  Block (row, b) takes lines b kTile + c, c < kTile, one
-// to each run of T threads.  FIRST: line c is column n2 = b kTile + c of the
+// of 2^LOG a row).  Block (row, b) takes lines b TILE + c, c < TILE, one
+// to each run of T threads.  FIRST: line c is column n2 = b TILE + c of the
 // row seen as 2^LOG x M (element e at e M + n2), conjugated when sgn = -1;
 // element e of its DFT, times step[e M + n2] = w_N^(n2 e), goes to e M + n2
-// of the workspace.  Otherwise: line c is workspace row k1 = b kTile + c
+// of the workspace.  Otherwise: line c is workspace row k1 = b TILE + c
 // (element e at k1 2^LOG + e); element e of its DFT goes to k1 + e M,
 // conjugated when sgn = -1 and scaled.
 template <int LOG, bool FIRST>
@@ -325,14 +338,15 @@ __global__ void __launch_bounds__(kMaxThreads)
                   const float2* __restrict__ step, int mlog, float sgn,
                   float scale) {
   using P = Plan<LOG>;
-  constexpr int THREADS = kTile * P::T;  // kTile lines of V values a thread
+  constexpr int TL = tile_log(LOG), TILE = 1 << TL;  // lines a block
+  constexpr int THREADS = TILE * P::T;  // TILE lines of V values a thread
   extern __shared__ float2 smem[];
   float2* s0 = smem;
-  float2* s1 = smem + kTile * P::N;
-  const int tiles_log = mlog - kTileLog;
+  float2* s1 = smem + TILE * P::N;
+  const int tiles_log = mlog - TL;
   const long long row_off = (long long)(blockIdx.x >> tiles_log)
                             << (LOG + mlog);
-  const int col0 = (blockIdx.x & ((1 << tiles_log) - 1)) << kTileLog;
+  const int col0 = (blockIdx.x & ((1 << tiles_log) - 1)) << TL;
   src += row_off;
   dst += row_off;
   // the tile's lines into s1 (what pass 0 reads), line c at c 2^LOG: in
@@ -344,8 +358,8 @@ __global__ void __launch_bounds__(kMaxThreads)
     int c, e;
     float2 a;
     if constexpr (FIRST) {
-      c = idx & (kTile - 1);
-      e = idx >> kTileLog;
+      c = idx & (TILE - 1);
+      e = idx >> TL;
       a = __ldg(src + ((long long)e << mlog) + col0 + c);
       a.y = __fmul_rn(a.y, sgn);
     } else {
@@ -366,8 +380,8 @@ __global__ void __launch_bounds__(kMaxThreads)
 #pragma unroll
   for (int k = 0; k < P::V; ++k) {
     const int idx = threadIdx.x + k * THREADS;
-    const int c = idx & (kTile - 1);
-    const int e = idx >> kTileLog;
+    const int c = idx & (TILE - 1);
+    const int e = idx >> TL;
     const float2 y = res[P::swz(c * P::N + e)];
     const long long off = ((long long)e << mlog) + col0 + c;
     if constexpr (FIRST) {
@@ -397,9 +411,9 @@ cudaError_t allow_smem_one() {
 }
 
 // Shared bytes of a four-step block over lines of 2^log: two buffers of
-// kTile lines.
+// its 2^tile_log(log) lines.
 size_t tile_smem_bytes(int log) {
-  return 2 * ((size_t)kTile << log) * sizeof(float2);
+  return 2 * ((size_t)1 << (tile_log(log) + log)) * sizeof(float2);
 }
 
 template <int LOG, bool FIRST>
@@ -412,7 +426,8 @@ cudaError_t allow_smem_tile() {
 // The opt-in above 48 KB for every N of more than one pass (a block of 512
 // threads holds up to 8192 values, two buffers of them take 128 KB), at
 // the most any rows_per_group the wrapper gives, and for the four-step
-// passes (up to 128 KB over lines of 1024), once per device.
+// passes (up to 128 KB over 8 lines of 1024 or 4 of 2048), once per
+// device.
 cudaError_t allow_smem() {
   static std::atomic<int> allowed[kMaxDevices];
   int dev = 0;
@@ -428,7 +443,8 @@ cudaError_t allow_smem() {
       allow_smem_tile<7, true>(),  allow_smem_tile<7, false>(),
       allow_smem_tile<8, true>(),  allow_smem_tile<8, false>(),
       allow_smem_tile<9, true>(),  allow_smem_tile<9, false>(),
-      allow_smem_tile<10, true>(), allow_smem_tile<10, false>()};
+      allow_smem_tile<10, true>(), allow_smem_tile<10, false>(),
+      allow_smem_tile<11, true>()};
   for (const cudaError_t e : errs) {
     if (e != cudaSuccess) return e;
   }
@@ -448,7 +464,8 @@ template <int LOG, bool FIRST>
 void launch_tile(const float2* in, float2* out, const float2* tw,
                  const float2* step, long long grid, int mlog, int smem,
                  float sgn, float scale, cudaStream_t stream) {
-  fft_four_step<LOG, FIRST><<<(unsigned)grid, kTile * Plan<LOG>::T, smem,
+  fft_four_step<LOG, FIRST><<<(unsigned)grid,
+                              (1 << tile_log(LOG)) * Plan<LOG>::T, smem,
                               stream>>>(in, out, tw, step, mlog, sgn, scale);
 }
 
@@ -470,6 +487,10 @@ void launch_four_step_pass(bool first, int log, const float2* in,
     RIMMS_FFT4_CASE(7) RIMMS_FFT4_CASE(8) RIMMS_FFT4_CASE(9)
     RIMMS_FFT4_CASE(10)
 #undef RIMMS_FFT4_CASE
+    case 2 * 11 + 1:  // pass 1 of N = 2^21 (pass 2's lines are 1024 long)
+      launch_tile<11, true>(in, out, tw, step, grid, mlog, smem, sgn, scale,
+                            st);
+      break;
   }
 }
 
@@ -546,9 +567,10 @@ struct Fft4Launch {
 
 // in, out, work: p->rows x p->n complex64, distinct; in 8-byte aligned, at
 // any element; work the wrapper's scratch.  n a power of two from 2^14 to
-// 2^20, N = N1 N2 with N1 = 2^ceil(log2 n / 2).  Pass 1 takes the N2
-// columns of each row, pass 2 the N1 workspace rows, kTile lines a block
-// (kTile * threads_per_row threads, two shared buffers of the lines).
+// 2^21, N = N1 N2 with N1 = 2^ceil(log2 n / 2).  Pass 1 takes the N2
+// columns of each row, pass 2 the N1 workspace rows, 2^tile_log lines a
+// block (that many times threads_per_row threads, two shared buffers of
+// the lines).
 // Launches pass 1 (in -> work) and pass 2 (work -> out) on `stream`;
 // returns the first CUDA error (0 on success), or cudaErrorInvalidValue
 // for arguments it does not take.
@@ -564,8 +586,8 @@ extern "C" int rimms_fft4_c64(const void* in, void* out, void* work,
       p->step == nullptr || work == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
-  const long long grid1 = rows << (l2 - kTileLog);
-  const long long grid2 = rows << (l1 - kTileLog);
+  const long long grid1 = rows << (l2 - tile_log(l1));
+  const long long grid2 = rows << (l1 - tile_log(l2));
   if (grid1 > 0x7fffffffLL || grid2 > 0x7fffffffLL) {
     return (int)cudaErrorInvalidValue;
   }

@@ -47,6 +47,28 @@
 //    shared loads from rows padded by 16 bytes (conflict-free).  Scores
 //    stay in registers: P.V takes p from the owning lane by shuffle.
 //
+// Head widths.  A head width d from 1 to 256 runs at the compiled width D
+// of 64, 128, 192 or 256 next above it: Q, K and V tiles are D wide, the
+// columns past d zero-filled as they load (so every product over them adds
+// exact zeros), and only d columns are stored; the host makes no padded
+// copy, and the scale is the caller's 1/sqrt(d).  Each D has three
+// instances: d = D (d a constant, the code of the widths the kernel always
+// took, so d 64 and 128 keep their bits and times), d a multiple of 16
+// bytes' elements (16-byte pieces, those past d zero-filled) and any other
+// d (element by element through registers).  At D 192 and 256 the bf16
+// P.V runs as an n128 wgmma and an n64 or n128 one on V's atoms 2 and 3;
+// its accumulator, 96 or 128 floats a thread, fits the registers of two
+// blocks an SM's 128 threads (ptxas: about 200 and 230, no spills).  A
+// load forms its address as the kernel always did (d = D: the same code;
+// measured, a pointer select in its place cost the bf16 path ~5 %).  The
+// float32 path takes chunks of 32 keys above D 128, where two stages of 64
+// K and V rows would not fit beside Q (250 KB at D 192).  bf16 wgmma's K
+// steps of 16 divide every D.
+//
+// Grid.  One block per (batch*head, block) in the grid's x dimension (x =
+// bh nb + block, nb blocks a head), so B * Hq has no limit of 65535 (the
+// y dimension's) and a head's blocks stay next to each other.
+//
 // Bit identity across block_q (the tunables contract): a row's result is a
 // function of its own q row and of the chunk sequence, and neither depends
 // on block_q:
@@ -101,27 +123,50 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// End of the chunk that starts at c0: at most 64 keys, inside c0's block_k
-// tile, before S
-__device__ __forceinline__ int chunk_end(int c0, int block_k, int S) {
+// How a head width d is loaded and stored at the compiled width D: kFull
+// (d = D, d a constant: the code of the widths the kernel always took),
+// kPieces (16-byte pieces, those past d zero-filled: d a multiple of 16
+// bytes' elements), kElems (element by element, zeros included).
+constexpr int kFull = 0, kPieces = 1, kElems = 2;
+
+// End of the chunk that starts at c0: at most kc keys, inside c0's
+// block_k tile, before S
+__device__ __forceinline__ int chunk_end(int c0, int block_k, int S,
+                                         int kc = kChunk) {
   const int tile_end = (c0 / block_k + 1) * block_k;
-  return min(min(c0 + kChunk, tile_end), S);
+  return min(min(c0 + kc, tile_end), S);
 }
 
 // Copy positions [r0, r1) of one head (src points at position 0 of it,
-// pos_stride elements apart) into `dst` rows 0..NROWS-1 (DS elements
-// apart), 16 bytes per cp.async; rows past r1 - r0 are zero-filled.
-template <typename T, int D, int DS, int NROWS>
+// pos_stride elements apart), columns 0..d-1, into `dst` rows 0..NROWS-1
+// (DS elements apart), zeros in rows past r1 - r0 and in columns d..D-1.
+// kFull, kPieces: 16 bytes per cp.async (rows 16-byte aligned); kElems:
+// element by element through registers.
+template <typename T, int D, int DS, int NROWS, int MODE>
 __device__ __forceinline__ void load_rows(T* dst, const T* src,
                                           long long pos_stride, int r0,
-                                          int r1) {
+                                          int r1, int d) {
   constexpr int kVec = 16 / sizeof(T);
   constexpr int kPerRow = D / kVec;
-  for (int e = threadIdx.x; e < NROWS * kPerRow; e += kThreads) {
-    const int r = e / kPerRow, c = (e % kPerRow) * kVec;
-    const bool ok = r0 + r < r1;
-    const T* g = src + (long long)(ok ? r0 + r : 0) * pos_stride + c;
-    cp_async16(dst + r * DS + c, g, ok ? 16 : 0);
+  if constexpr (MODE != kElems) {
+    for (int e = threadIdx.x; e < NROWS * kPerRow; e += kThreads) {
+      const int r = e / kPerRow, c = (e % kPerRow) * kVec;
+      if constexpr (MODE == kFull) {  // the kernel's own address form
+        const bool ok = r0 + r < r1;
+        const T* g = src + (long long)(ok ? r0 + r : 0) * pos_stride + c;
+        cp_async16(dst + r * DS + c, g, ok ? 16 : 0);
+      } else {  // pieces past d zero-filled
+        const bool ok = r0 + r < r1 && c < d;
+        const T* g = ok ? src + (long long)(r0 + r) * pos_stride + c : src;
+        cp_async16(dst + r * DS + c, g, ok ? 16 : 0);
+      }
+    }
+  } else {
+    for (int e = threadIdx.x; e < NROWS * D; e += kThreads) {
+      const int r = e / D, c = e % D;
+      const bool ok = r0 + r < r1 && c < d;
+      dst[r * DS + c] = ok ? src[(long long)(r0 + r) * pos_stride + c] : T(0);
+    }
   }
 }
 
@@ -231,19 +276,39 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
 // r * 128 + ((c ^ (r % 8)) * 16) within its atom.
 constexpr int kAtom = 64 * 128;
 
-template <int D, int NROWS>
+// The rows as load_rows takes them, each 16-byte piece c of row r at its
+// place in the swizzle.
+template <int D, int NROWS, int MODE>
 __device__ __forceinline__ void load_rows_sw(unsigned char* dst,
                                              const __nv_bfloat16* src,
                                              long long pos_stride, int r0,
-                                             int r1) {
+                                             int r1, int d) {
   constexpr int kPerRow = D / 8;  // 16-byte pieces
-  for (int e = threadIdx.x; e < NROWS * kPerRow; e += kThreads) {
-    const int r = e / kPerRow, c = e % kPerRow;
-    const bool ok = r0 + r < r1;
-    const __nv_bfloat16* g =
-        src + (long long)(ok ? r0 + r : 0) * pos_stride + c * 8;
-    cp_async16(dst + (c / 8) * kAtom + r * 128 + (((c % 8) ^ (r % 8)) << 4),
-               g, ok ? 16 : 0);
+  if constexpr (MODE != kElems) {
+    for (int e = threadIdx.x; e < NROWS * kPerRow; e += kThreads) {
+      const int r = e / kPerRow, c = e % kPerRow;
+      unsigned char* to =
+          dst + (c / 8) * kAtom + r * 128 + (((c % 8) ^ (r % 8)) << 4);
+      if constexpr (MODE == kFull) {  // the kernel's own address form
+        const bool ok = r0 + r < r1;
+        cp_async16(to, src + (long long)(ok ? r0 + r : 0) * pos_stride + c * 8,
+                   ok ? 16 : 0);
+      } else {  // pieces past d zero-filled
+        const bool ok = r0 + r < r1 && 8 * c < d;
+        cp_async16(to, ok ? src + (long long)(r0 + r) * pos_stride + c * 8
+                          : src, ok ? 16 : 0);
+      }
+    }
+  } else {
+    for (int e = threadIdx.x; e < NROWS * D; e += kThreads) {
+      const int r = e / D, col = e % D, c = col / 8;
+      const bool ok = r0 + r < r1 && col < d;
+      *reinterpret_cast<__nv_bfloat16*>(
+          dst + (c / 8) * kAtom + r * 128 + (((c % 8) ^ (r % 8)) << 4) +
+          2 * (col % 8)) =
+          ok ? src[(long long)(r0 + r) * pos_stride + col]
+             : __float2bfloat16(0.f);
+    }
   }
 }
 
@@ -252,13 +317,16 @@ constexpr int wg_smem_bytes() {
   return 5 * (D / 64) * kAtom + 1024;  // Q, 2 stages of K and V; alignment
 }
 
-template <int D>
+template <int D, int MODE>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_attention_bf16(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
                      __nv_bfloat16* __restrict__ out, int S, int Hq, int Hkv,
-                     int block_q, int block_k, int causal, float scale) {
+                     int block_q, int block_k, int causal, float scale,
+                     int d_arg, int nb) {
+  constexpr bool VEC = MODE != kElems;
+  const int d = MODE == kFull ? D : d_arg;
   constexpr int KS = D / 16;       // k-steps of Q.K^T
   constexpr int NT = D / 8;        // n-tiles of the output
   constexpr int TILE = (D / 64) * kAtom;  // bytes of a 64-row tile
@@ -271,31 +339,30 @@ flash_attention_bf16(const __nv_bfloat16* __restrict__ q,
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, tig = lane % 4;
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x / nb, bx = blockIdx.x % nb;
   const int b = bh / Hq, h = bh % Hq;
   const int hk = h / (Hq / Hkv);
-  const long long q_pos = (long long)Hq * D;
-  const long long kv_pos = (long long)Hkv * D;
-  const __nv_bfloat16* qb = q + (long long)b * S * q_pos + (long long)h * D;
-  __nv_bfloat16* ob = out + (long long)b * S * q_pos + (long long)h * D;
+  const long long q_pos = (long long)Hq * d;
+  const long long kv_pos = (long long)Hkv * d;
+  const __nv_bfloat16* qb = q + (long long)b * S * q_pos + (long long)h * d;
+  __nv_bfloat16* ob = out + (long long)b * S * q_pos + (long long)h * d;
   const __nv_bfloat16* kb =
-      k + (long long)b * S * kv_pos + (long long)hk * D;
+      k + (long long)b * S * kv_pos + (long long)hk * d;
   const __nv_bfloat16* vb =
-      v + (long long)b * S * kv_pos + (long long)hk * D;
+      v + (long long)b * S * kv_pos + (long long)hk * d;
   const float sl = scale * kLog2e;
 
-  const int n_sub = (block_q + kRows - 1) / kRows, nb = gridDim.x;
+  const int n_sub = (block_q + kRows - 1) / kRows;
   for (int rd = 0; rd < n_sub; ++rd) {
-    const int r0 =
-        (rd * nb + (rd % 2 == 0 ? blockIdx.x : nb - 1 - blockIdx.x)) * kRows;
+    const int r0 = (rd * nb + (rd % 2 == 0 ? bx : nb - 1 - bx)) * kRows;
     if (r0 >= S) continue;
     const int nrows = min(kRows, S - r0);
     const int k_end = causal ? min(S, r0 + nrows) : S;
     const int w0 = r0 + 16 * warp;       // this warp's first row
-    load_rows_sw<D, kRows>(qs, qb, q_pos, r0, r0 + nrows);
+    load_rows_sw<D, kRows, MODE>(qs, qb, q_pos, r0, r0 + nrows, d);
     int c0 = 0, c1 = chunk_end(0, block_k, S);
-    load_rows_sw<D, kChunk>(ks0, kb, kv_pos, c0, c1);
-    load_rows_sw<D, kChunk>(ks0 + TILE, vb, kv_pos, c0, c1);
+    load_rows_sw<D, kChunk, MODE>(ks0, kb, kv_pos, c0, c1, d);
+    load_rows_sw<D, kChunk, MODE>(ks0 + TILE, vb, kv_pos, c0, c1, d);
     cp_async_commit();
 
     float o[NT * 4];
@@ -310,8 +377,8 @@ flash_attention_bf16(const __nv_bfloat16* __restrict__ q,
       __syncthreads();  // chunk `it` is in; every warp is done with it - 1
       if (n0 < k_end) {
         unsigned char* st = ks0 + ((it + 1) & 1) * 2 * TILE;
-        load_rows_sw<D, kChunk>(st, kb, kv_pos, n0, n1);
-        load_rows_sw<D, kChunk>(st + TILE, vb, kv_pos, n0, n1);
+        load_rows_sw<D, kChunk, MODE>(st, kb, kv_pos, n0, n1, d);
+        load_rows_sw<D, kChunk, MODE>(st + TILE, vb, kv_pos, n0, n1, d);
       }
       cp_async_commit();
       const uint32_t ks_a = ks0_a + (it & 1) * 2 * TILE, vs_a = ks_a + TILE;
@@ -392,10 +459,19 @@ flash_attention_bf16(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         const uint64_t dv = sw128_desc(vs_a + kk * 16 * 128, kAtom, 1024);
-        if constexpr (D == 128)
-          wgmma_rs_n128(o, pa[kk], dv);
-        else
+        if constexpr (D == 64) {
           wgmma_rs_n64(o, pa[kk], dv);
+        } else {
+          wgmma_rs_n128(o, pa[kk], dv);
+          if constexpr (D > 128) {  // columns 128.. from V's atoms 2, 3
+            const uint64_t dv2 =
+                sw128_desc(vs_a + 2 * kAtom + kk * 16 * 128, kAtom, 1024);
+            if constexpr (D == 192)
+              wgmma_rs_n64(o + 64, pa[kk], dv2);
+            else
+              wgmma_rs_n128(o + 64, pa[kk], dv2);
+          }
+        }
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -412,10 +488,20 @@ flash_attention_bf16(const __nv_bfloat16* __restrict__ q,
         const float lf = fmaxf(l[r], 1e-30f);
         __nv_bfloat16* dst = ob + (long long)row * q_pos + 2 * tig;
 #pragma unroll
-        for (int t = 0; t < NT; ++t)
-          *reinterpret_cast<__nv_bfloat162*>(dst + 8 * t) =
-              __floats2bfloat162_rn(o[4 * t + 2 * r] / lf,
-                                    o[4 * t + 2 * r + 1] / lf);
+        for (int t = 0; t < NT; ++t) {
+          const int col = 8 * t + 2 * tig;  // d columns of the padded D
+          if constexpr (VEC) {  // d even: a pair is in whole or none
+            if (col < d)
+              *reinterpret_cast<__nv_bfloat162*>(dst + 8 * t) =
+                  __floats2bfloat162_rn(o[4 * t + 2 * r] / lf,
+                                        o[4 * t + 2 * r + 1] / lf);
+          } else {
+            if (col < d)
+              dst[8 * t] = __float2bfloat16_rn(o[4 * t + 2 * r] / lf);
+            if (col + 1 < d)
+              dst[8 * t + 1] = __float2bfloat16_rn(o[4 * t + 2 * r + 1] / lf);
+          }
+        }
       }
     }
     cp_async_wait_all();
@@ -424,52 +510,62 @@ flash_attention_bf16(const __nv_bfloat16* __restrict__ q,
 }
 
 // --------------------------------------------------------------- float32
+// keys a chunk of the float32 path: 64, and 32 above D 128, where two
+// stages of 64 K and V rows would not fit beside Q (250 KB at D 192)
 template <int D>
-constexpr int f32_smem_bytes() {
-  return (kRows + 4 * kChunk) * (D + 4) * 4;  // Q, 2 stages of K and V
+__host__ __device__ constexpr int f32_chunk() {
+  return D > 128 ? 32 : kChunk;
 }
 
 template <int D>
+constexpr int f32_smem_bytes() {
+  return (kRows + 4 * f32_chunk<D>()) * (D + 4) * 4;  // Q, 2 stages of K, V
+}
+
+template <int D, int MODE>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, float* __restrict__ out,
                     int S, int Hq, int Hkv, int block_q, int block_k,
-                    int causal, float scale) {
+                    int causal, float scale, int d_arg, int nb) {
+  constexpr bool VEC = MODE != kElems;
+  const int d = MODE == kFull ? D : d_arg;
   constexpr int DS = D + 4;   // padded row (16 bytes): conflict-free float4
   constexpr int OT = D / 64;  // output column groups of 4 per thread
+  constexpr int KC = f32_chunk<D>();  // keys a chunk
+  constexpr int KJ = KC / 16;         // of them a lane's: cg + 16 j
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* qs = reinterpret_cast<float*>(smem_raw);
   float* ks0 = qs + kRows * DS;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int hr = lane / 16, cg = lane % 16;  // row parity, column group
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x / nb, bx = blockIdx.x % nb;
   const int b = bh / Hq, h = bh % Hq;
   const int hk = h / (Hq / Hkv);
-  const long long q_pos = (long long)Hq * D;
-  const long long kv_pos = (long long)Hkv * D;
-  const float* qb = q + (long long)b * S * q_pos + (long long)h * D;
-  float* ob = out + (long long)b * S * q_pos + (long long)h * D;
-  const float* kb = k + (long long)b * S * kv_pos + (long long)hk * D;
-  const float* vb = v + (long long)b * S * kv_pos + (long long)hk * D;
+  const long long q_pos = (long long)Hq * d;
+  const long long kv_pos = (long long)Hkv * d;
+  const float* qb = q + (long long)b * S * q_pos + (long long)h * d;
+  float* ob = out + (long long)b * S * q_pos + (long long)h * d;
+  const float* kb = k + (long long)b * S * kv_pos + (long long)hk * d;
+  const float* vb = v + (long long)b * S * kv_pos + (long long)hk * d;
   const float sl = scale * kLog2e;
 
   // block_q / 64 sub-tiles, dealt in snake order (round r takes sub-tile
   // r nb + x on even rounds, r nb + nb - 1 - x on odd ones), so that under
   // a causal mask every block gets about the same number of keys
-  const int n_sub = (block_q + kRows - 1) / kRows, nb = gridDim.x;
+  const int n_sub = (block_q + kRows - 1) / kRows;
   for (int rd = 0; rd < n_sub; ++rd) {
-    const int r0 =
-        (rd * nb + (rd % 2 == 0 ? blockIdx.x : nb - 1 - blockIdx.x)) * kRows;
+    const int r0 = (rd * nb + (rd % 2 == 0 ? bx : nb - 1 - bx)) * kRows;
     if (r0 >= S) continue;
     const int nrows = min(kRows, S - r0);
     const int k_end = causal ? min(S, r0 + nrows) : S;
     const int w0 = r0 + 16 * warp;
     const int w_last = w0 + 15;
-    load_rows<float, D, DS, kRows>(qs, qb, q_pos, r0, r0 + nrows);
-    int c0 = 0, c1 = chunk_end(0, block_k, S);
-    load_rows<float, D, DS, kChunk>(ks0, kb, kv_pos, c0, c1);
-    load_rows<float, D, DS, kChunk>(ks0 + kChunk * DS, vb, kv_pos, c0, c1);
+    load_rows<float, D, DS, kRows, MODE>(qs, qb, q_pos, r0, r0 + nrows, d);
+    int c0 = 0, c1 = chunk_end(0, block_k, S, KC);
+    load_rows<float, D, DS, KC, MODE>(ks0, kb, kv_pos, c0, c1, d);
+    load_rows<float, D, DS, KC, MODE>(ks0 + KC * DS, vb, kv_pos, c0, c1, d);
     cp_async_commit();
 
     // rows 16 warp + 2 i + hr (i < 8); output columns 4 cg + 64 t + u
@@ -489,29 +585,30 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
     const float* qw = qs + (16 * warp + hr) * DS;
 
     for (int it = 0; c0 < k_end; ++it) {
-      const int n0 = c1, n1 = n0 < k_end ? chunk_end(n0, block_k, S) : n0;
+      const int n0 = c1,
+                n1 = n0 < k_end ? chunk_end(n0, block_k, S, KC) : n0;
       cp_async_wait_all();
       __syncthreads();
       if (n0 < k_end) {
-        float* st = ks0 + ((it + 1) & 1) * 2 * kChunk * DS;
-        load_rows<float, D, DS, kChunk>(st, kb, kv_pos, n0, n1);
-        load_rows<float, D, DS, kChunk>(st + kChunk * DS, vb, kv_pos, n0, n1);
+        float* st = ks0 + ((it + 1) & 1) * 2 * KC * DS;
+        load_rows<float, D, DS, KC, MODE>(st, kb, kv_pos, n0, n1, d);
+        load_rows<float, D, DS, KC, MODE>(st + KC * DS, vb, kv_pos, n0, n1, d);
       }
       cp_async_commit();
       if (!causal || c0 <= w_last) {
-        const float* ks = ks0 + (it & 1) * 2 * kChunk * DS;
-        const float* vs = ks + kChunk * DS;
+        const float* ks = ks0 + (it & 1) * 2 * KC * DS;
+        const float* vs = ks + KC * DS;
         // s[i][j] = q[row i] . k[key cg + 16 j]
-        float s[8][4];
+        float s[8][KJ];
 #pragma unroll
         for (int i = 0; i < 8; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+          for (int j = 0; j < KJ; ++j) s[i][j] = 0.f;
 #pragma unroll 2
         for (int x = 0; x < D; x += 4) {
-          float4 kx[4];
+          float4 kx[KJ];
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
+          for (int j = 0; j < KJ; ++j)
             kx[j] = *reinterpret_cast<const float4*>(ks + (cg + 16 * j) * DS +
                                                      x);
 #pragma unroll
@@ -519,7 +616,7 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
             const float4 qv =
                 *reinterpret_cast<const float4*>(qw + 2 * i * DS + x);
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
+            for (int j = 0; j < KJ; ++j) {
               s[i][j] = fmaf(qv.x, kx[j].x, s[i][j]);
               s[i][j] = fmaf(qv.y, kx[j].y, s[i][j]);
               s[i][j] = fmaf(qv.z, kx[j].z, s[i][j]);
@@ -527,15 +624,15 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
             }
           }
         }
-        // mask and the online-softmax step; a row's 64 scores lie in the
+        // mask and the online-softmax step; a row's KC scores lie in the
         // 16 lanes of its half-warp
-        const bool edge = c1 - c0 < kChunk || (causal && c1 - 1 > w0);
+        const bool edge = c1 - c0 < KC || (causal && c1 - 1 > w0);
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
           const int row = w0 + 2 * i + hr;
           float mx = kNegInf;
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
+          for (int j = 0; j < KJ; ++j) {
             const int key = c0 + cg + 16 * j;
             if (edge && (key >= c1 || (causal && key > row)))
               s[i][j] = kNegInf;
@@ -549,7 +646,7 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
           m[i] = m_new;
           float sum = 0.f;
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
+          for (int j = 0; j < KJ; ++j) {
             s[i][j] = exp2f(fmaf(s[i][j], sl, -m_new));
             sum += s[i][j];
           }
@@ -565,7 +662,7 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
         // acc += p v: p[row][key] comes from the lane owning key's column
         const int nkeys = c1 - c0;  // keys past it have p = 0, V rows 0
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < KJ; ++j) {
           for (int c = 0; c < 16; ++c) {
             const int key = c + 16 * j;
             if (key >= nkeys) break;
@@ -598,10 +695,19 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
         const float lf = fmaxf(l[i], 1e-30f);
         float* dst = ob + (long long)row * q_pos + 4 * cg;
 #pragma unroll
-        for (int t = 0; t < OT; ++t)
-          *reinterpret_cast<float4*>(dst + 64 * t) =
-              make_float4(o[i][t][0] / lf, o[i][t][1] / lf, o[i][t][2] / lf,
-                          o[i][t][3] / lf);
+        for (int t = 0; t < OT; ++t) {
+          const int col = 4 * cg + 64 * t;  // d columns of the padded D
+          if constexpr (VEC) {  // d a multiple of 4: four whole or none
+            if (col < d)
+              *reinterpret_cast<float4*>(dst + 64 * t) =
+                  make_float4(o[i][t][0] / lf, o[i][t][1] / lf,
+                              o[i][t][2] / lf, o[i][t][3] / lf);
+          } else {
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+              if (col + u < d) dst[64 * t + u] = o[i][t][u] / lf;
+          }
+        }
       }
     }
     cp_async_wait_all();
@@ -612,66 +718,87 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
 template <typename T, typename K>
 int launch(K kernel, int bytes, const T* q, const T* k, const T* v, T* out,
            int B, int S, int Hq, int Hkv, int causal, int block_q,
-           int block_k, float scale, cudaStream_t stream) {
+           int block_k, float scale, int d, cudaStream_t stream) {
+  // kernel: the instance for d (16-byte pieces or element-wise)
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   const int n_sub = (block_q + kRows - 1) / kRows;  // sub-tiles per block
   const int tiles = (S + kRows - 1) / kRows;
-  const dim3 grid((unsigned)((tiles + n_sub - 1) / n_sub), (unsigned)(B * Hq));
-  kernel<<<grid, kThreads, bytes, stream>>>(q, k, v, out, S, Hq, Hkv, block_q,
-                                            block_k, causal, scale);
+  const int nb = (tiles + n_sub - 1) / n_sub;       // blocks per head
+  // (batch*head, block) folded into x: no limit of 65535 on B * Hq
+  const long long blocks = (long long)nb * B * Hq;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, kThreads, bytes, stream>>>(
+      q, k, v, out, S, Hq, Hkv, block_q, block_k, causal, scale, d, nb);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
                 int B, int S, int Hq, int Hkv, int causal, int block_q,
-                int block_k, float scale, cudaStream_t st) {
+                int block_k, float scale, int d, cudaStream_t st) {
   using T = __nv_bfloat16;
-  return launch(flash_attention_bf16<D>, wg_smem_bytes<D>(), (const T*)q,
-                (const T*)k, (const T*)v, (T*)out, B, S, Hq, Hkv, causal,
-                block_q, block_k, scale, st);
+  return launch(d == D       ? flash_attention_bf16<D, kFull>
+                : d % 8 == 0 ? flash_attention_bf16<D, kPieces>
+                             : flash_attention_bf16<D, kElems>,
+                wg_smem_bytes<D>(), (const T*)q, (const T*)k, (const T*)v,
+                (T*)out, B, S, Hq, Hkv, causal, block_q, block_k, scale, d,
+                st);
 }
 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
                int S, int Hq, int Hkv, int causal, int block_q, int block_k,
-               float scale, cudaStream_t st) {
-  return launch(flash_attention_f32<D>, f32_smem_bytes<D>(), (const float*)q,
-                (const float*)k, (const float*)v, (float*)out, B, S, Hq, Hkv,
-                causal, block_q, block_k, scale, st);
+               float scale, int d, cudaStream_t st) {
+  return launch(d == D       ? flash_attention_f32<D, kFull>
+                : d % 4 == 0 ? flash_attention_f32<D, kPieces>
+                             : flash_attention_f32<D, kElems>,
+                f32_smem_bytes<D>(), (const float*)q, (const float*)k,
+                (const float*)v, (float*)out, B, S, Hq, Hkv, causal, block_q,
+                block_k, scale, d, st);
+}
+
+template <int D>
+int launch_any(int dtype, const void* q, const void* k, const void* v,
+               void* out, int B, int S, int Hq, int Hkv, int causal,
+               int block_q, int block_k, float scale, int d,
+               cudaStream_t st) {
+  return dtype == 0 ? launch_f32<D>(q, k, v, out, B, S, Hq, Hkv, causal,
+                                    block_q, block_k, scale, d, st)
+                    : launch_bf16<D>(q, k, v, out, B, S, Hq, Hkv, causal,
+                                     block_q, block_k, scale, d, st);
 }
 
 }  // namespace
 
-// q, out: (B, S, Hq, D); k, v: (B, S, Hkv, D); all contiguous, of one type
-// (dtype 0: float32, 1: bfloat16), 16-byte aligned; D 64 or 128; Hq a
-// multiple of Hkv; 1 <= block_k <= 512 (block_k <= S).  Launches on
-// `stream`; returns cudaGetLastError() (0 on success).
+// q, out: (B, S, Hq, d); k, v: (B, S, Hkv, d); all contiguous, of one type
+// (dtype 0: float32, 1: bfloat16), 16-byte aligned; 1 <= d <= 256, run at
+// the compiled width D of 64, 128, 192 or 256 next above it (scale is the
+// caller's, 1/sqrt(d)); Hq a multiple of Hkv; 1 <= block_k <= 512
+// (block_k <= S).  Launches on `stream`; returns cudaGetLastError() (0 on
+// success), or cudaErrorInvalidValue for what it does not take.
 extern "C" int rimms_flash_attention(const void* q, const void* k,
                                      const void* v, void* out, int B, int S,
-                                     int Hq, int Hkv, int D, int dtype,
+                                     int Hq, int Hkv, int d, int dtype,
                                      int causal, int block_q, int block_k,
                                      float scale, void* stream) {
   if (B < 0 || S < 0 || Hq < 1 || Hkv < 1 || Hq % Hkv != 0 ||
-      block_q < 1 || block_k < 1 || block_k > kMaxBlockK ||
-      (long long)B * Hq > 65535 ||
+      block_q < 1 || block_k < 1 || block_k > kMaxBlockK || d < 1 ||
+      d > 256 || (dtype != 0 && dtype != 1) ||
       ((size_t)q | (size_t)k | (size_t)v | (size_t)out) % 16)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0 && D == 64)
-    return launch_f32<64>(q, k, v, out, B, S, Hq, Hkv, causal, block_q,
-                          block_k, scale, st);
-  if (dtype == 0 && D == 128)
-    return launch_f32<128>(q, k, v, out, B, S, Hq, Hkv, causal, block_q,
-                           block_k, scale, st);
-  if (dtype == 1 && D == 64)
-    return launch_bf16<64>(q, k, v, out, B, S, Hq, Hkv, causal, block_q,
-                           block_k, scale, st);
-  if (dtype == 1 && D == 128)
-    return launch_bf16<128>(q, k, v, out, B, S, Hq, Hkv, causal, block_q,
-                            block_k, scale, st);
-  return (int)cudaErrorInvalidValue;
+  if (d <= 64)
+    return launch_any<64>(dtype, q, k, v, out, B, S, Hq, Hkv, causal,
+                          block_q, block_k, scale, d, st);
+  if (d <= 128)
+    return launch_any<128>(dtype, q, k, v, out, B, S, Hq, Hkv, causal,
+                           block_q, block_k, scale, d, st);
+  if (d <= 192)
+    return launch_any<192>(dtype, q, k, v, out, B, S, Hq, Hkv, causal,
+                           block_q, block_k, scale, d, st);
+  return launch_any<256>(dtype, q, k, v, out, B, S, Hq, Hkv, causal, block_q,
+                         block_k, scale, d, st);
 }

@@ -71,7 +71,12 @@
 //     over the chunk (the triangle: steps past the diagonal are
 //     skipped).  A warp owns 16 token rows and 8 NT columns of all three
 //     outputs.  The chunk's token rows are read once per 64 columns, 8
-//     times per (chunk, head) at m = 512.
+//     times per (chunk, head) at m = 512.  A chunk above 128 is taken in
+//     row blocks of 128 token rows, one block each (the A slots hold the
+//     block's rows of dS, dS^T and A^T, the B slots the whole chunk's
+//     token slices): a block's tiles at c 256 are those of a chunk of 128
+//     (four stages, 227,360 bytes of shared memory), where the whole
+//     chunk's rows would take twice that.
 //  5. mlstm_bwd_gates_kernel, one block per (chunk, head): sums the
 //     shares in a fixed order, di and dcum, and dlog_f.
 // Nothing is summed by atomics, so the bits do not change from run to run.
@@ -80,7 +85,10 @@
 // and the C_in and dC tiles, not by its products; the state walk by
 // writing each chunk's m x m gradient (268 MB).  mma.sync m16n8k8 on
 // TF32 alone peaks near 316 TFLOP/s on that card.
-// c is at most 128, m at most 1024.
+// c is at most 256, m at most 1024.  At c 256 the other passes keep their
+// tiles (64 x 64 of the scores, 32-token slices of the state walk, the
+// prep's 32 tokens a block); the per-token vectors they stage are 256
+// long, and the gates pass runs a thread a token.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -90,7 +98,8 @@
 namespace {
 
 constexpr int kThreads = 256;  // 8 warps
-constexpr int kMaxChunk = 128;
+constexpr int kMaxChunk = 256;
+constexpr int kRowBlock = 128;  // token rows a grads block owns
 constexpr int kMaxSmem = 232448;
 constexpr int kCols = 64;   // columns of m a grads block owns; side of a
                             // state tile and of a scores tile
@@ -529,7 +538,10 @@ mlstm_bwd_scores_kernel(const float* __restrict__ q,
 // --------------------------------------------------------------- 4. grads
 // parts: [BH * nc][nP][2 c + 1] = shares of q~ . Z (c), k . Y (c) and
 // dC : C_in + dn . n_in (1) over this block's 64 columns.  One block per
-// (chunk, head, 64 columns P of m).  Warp w < tasks owns row tile w / ngr
+// (chunk, row block of up to 128 token rows, head, 64 columns P of m): a
+// chunk of 128 or less is one row block; above, each block writes its
+// rows' shares, and row block 0 the dC : C_in one.  The row tiles below
+// are the block's.  Warp w < tasks owns row tile w / ngr
 // (16 token rows) and column group w % ngr (NT tiles of 8 columns), with
 // ngr = 8 / NT, of dq, dk and dv at once.  Steps 0..nms-1 take 16 of m
 // (A slots: dh, v, k rows of the chunk; B slots: C_in[P, slice] and
@@ -542,7 +554,7 @@ struct GradsCfg {
   static constexpr int min_blocks = NT <= 4 ? 2 : 1;
 };
 
-template <int V, int NT>
+template <int V, int NT, bool RB>
 __global__ void __launch_bounds__(kThreads, GradsCfg<NT>::min_blocks)
 mlstm_bwd_grads_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
@@ -561,10 +573,16 @@ mlstm_bwd_grads_kernel(const float* __restrict__ q,
   constexpr int kStages = GradsCfg<NT>::stages;
   constexpr int ngr = 8 / NT;
   extern __shared__ __align__(16) float smem[];
-  const int cp = (c + 15) & ~15, nrt = cp / 16;
-  const int stage = 3 * cp * kLdA + 3 * kBSlot;
+  const int cp = (c + 15) & ~15;
+  // RB: row blocks of kRowBlock (chunks above it); else the chunk's rows
+  const int rcap = RB ? kRowBlock : cp;
+  const int nrb = RB ? (cp + kRowBlock - 1) / kRowBlock : 1;
+  const int stage = 3 * rcap * kLdA + 3 * kBSlot;
   const int np = (M + kCols - 1) / kCols, nc = S / c;
-  const int pt = blockIdx.x % np, j = blockIdx.x / np, bh = blockIdx.y;
+  const int pt = blockIdx.x % np, bh = blockIdx.y;
+  const int rb = RB ? (blockIdx.x / np) % nrb : 0, j = blockIdx.x / np / nrb;
+  const int rb0 = rb * kRowBlock;                 // the block's first row
+  const int nrt = min(cp - rb0, rcap) / 16;       // its row tiles
   const int a0 = pt * kCols;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
@@ -586,7 +604,7 @@ mlstm_bwd_grads_kernel(const float* __restrict__ q,
   float* dds = rs + kMaxChunk;         // dden
   float* ecs = dds + kMaxChunk;        // exp(cum)
   float* ws = ecs + kMaxChunk;         // w = exp(cum_last - cum) i
-  float* red = ws + kMaxChunk;         // [2][ngr][cp] row shares
+  float* red = ws + kMaxChunk;         // [2][ngr][rcap] row shares
   float* red8 = red + 2 * kMaxChunk;   // [8] warp sums of dC : C_in
   const float clast = vec[at + c - 1];
   for (int t = tid; t < kMaxChunk; t += kThreads) {
@@ -599,18 +617,20 @@ mlstm_bwd_grads_kernel(const float* __restrict__ q,
   const int nms = (M + kDepth - 1) / kDepth;
   const int nsteps = nms + cp / kDepth;
   const long long row0 = hd.row(t0);
+  const long long rowb = hd.row(t0 + rb0);  // the block's first token row
 
   auto issue = [&](int st) {
     if (st < nsteps) {
       float* as = smem + (st % kStages) * stage;
-      float* bs = as + 3 * cp * kLdA;
+      float* bs = as + 3 * rcap * kLdA;
       if (st < nms) {
         const int i0 = st * kDepth;
-        stage_rows<V, kDepth>(as, kLdA, dh + row0 + i0, hd.pos, cp, c, M - i0);
-        stage_rows<V, kDepth>(as + cp * kLdA, kLdA, v + row0 + i0, hd.pos, cp,
-                              c, M - i0);
-        stage_rows<V, kDepth>(as + 2 * cp * kLdA, kLdA, k + row0 + i0, hd.pos,
-                              cp, c, M - i0);
+        stage_rows<V, kDepth>(as, kLdA, dh + rowb + i0, hd.pos, rcap, c - rb0,
+                              M - i0);
+        stage_rows<V, kDepth>(as + rcap * kLdA, kLdA, v + rowb + i0, hd.pos,
+                              rcap, c - rb0, M - i0);
+        stage_rows<V, kDepth>(as + 2 * rcap * kLdA, kLdA, k + rowb + i0,
+                              hd.pos, rcap, c - rb0, M - i0);
         stage_rows<V, kDepth>(bs, kLdA, cin + (long long)a0 * M + i0, M, kCols,
                               M - a0, M - i0);
         stage_rows<V, kDepth>(bs + kBSlot, kLdA, dco + (long long)a0 * M + i0,
@@ -620,11 +640,13 @@ mlstm_bwd_grads_kernel(const float* __restrict__ q,
                              M - a0);
       } else {
         const int k0 = (st - nms) * kDepth;
-        stage_rows<4, kDepth>(as, kLdA, ds_m + k0, cp, cp, cp, kDepth);
-        stage_rows<4, kDepth>(as + cp * kLdA, kLdA, dst_m + k0, cp, cp, cp,
+        const long long mo = (long long)rb0 * cp + k0;  // the block's rows
+        stage_rows<4, kDepth>(as, kLdA, ds_m + mo, cp, rcap, cp - rb0,
                               kDepth);
-        stage_rows<4, kDepth>(as + 2 * cp * kLdA, kLdA, at_m + k0, cp, cp, cp,
-                              kDepth);
+        stage_rows<4, kDepth>(as + rcap * kLdA, kLdA, dst_m + mo, cp, rcap,
+                              cp - rb0, kDepth);
+        stage_rows<4, kDepth>(as + 2 * rcap * kLdA, kLdA, at_m + mo, cp, rcap,
+                              cp - rb0, kDepth);
         // rows past the chunk clamp to its last (zero-filled)
         const long long rk = hd.row(t0 + min(k0, c - 1)) + a0;
         stage_rows<V, kCols>(bs, kLdK, k + rk, hd.pos, kDepth, c - k0, M - a0);
@@ -640,7 +662,8 @@ mlstm_bwd_grads_kernel(const float* __restrict__ q,
   const int tasks = nrt * ngr;
   const bool active = warp < tasks;
   const int rt = warp / ngr, cgp = warp % ngr;
-  const int r0 = 16 * rt;         // the warp's first token row
+  const int r0 = 16 * rt;         // the warp's first row in the block
+  const int tr0 = rb0 + r0;       // ... and in the chunk
   const int n0 = 8 * NT * cgp;    // its first column within P
   // Z -> dq~, Y -> dk, X -> dv: the state terms, then (scaled) the
   // outputs' accumulators
@@ -657,7 +680,7 @@ mlstm_bwd_grads_kernel(const float* __restrict__ q,
     __syncthreads();
     issue(st + kStages - 1);
     const float* as = smem + (st % kStages) * stage;
-    const float* bs = as + 3 * cp * kLdA;
+    const float* bs = as + 3 * rcap * kLdA;
     if (st < nms) {
       {  // dC : C_in over this block's rows and the slice, 4 a thread
         const int off = (tid >> 2) * kLdA + 4 * (tid & 3);
@@ -666,7 +689,7 @@ mlstm_bwd_grads_kernel(const float* __restrict__ q,
         pd = fmaf(x.x, y.x, fmaf(x.y, y.y, fmaf(x.z, y.z, fmaf(x.w, y.w, pd))));
       }
       if (active) {
-        const float rg0 = rs[r0 + g], rg1 = rs[r0 + g + 8];
+        const float rg0 = rs[tr0 + g], rg1 = rs[tr0 + g + 8];
 #pragma unroll
         for (int kk = 0; kk < kDepth / 8; ++kk) {
           float x[4];
@@ -676,9 +699,9 @@ mlstm_bwd_grads_kernel(const float* __restrict__ q,
           x[1] = __fmul_rn(x[1], rg1);
           x[3] = __fmul_rn(x[3], rg1);
           const Split<4> an(x);  // dnum
-          load_a(x, as + (cp + r0) * kLdA + 8 * kk, kLdA, g, t4);
+          load_a(x, as + (rcap + r0) * kLdA + 8 * kk, kLdA, g, t4);
           const Split<4> av(x);  // v
-          load_a(x, as + (2 * cp + r0) * kLdA + 8 * kk, kLdA, g, t4);
+          load_a(x, as + (2 * rcap + r0) * kLdA + 8 * kk, kLdA, g, t4);
           const Split<4> ak(x);  // k
 #pragma unroll
           for (int nt = 0; nt < NT; ++nt) {
@@ -702,7 +725,7 @@ mlstm_bwd_grads_kernel(const float* __restrict__ q,
           for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
-              const int t = r0 + g + 8 * (e >> 1);
+              const int t = tr0 + g + 8 * (e >> 1);
               const int a = a0 + n0 + 8 * nt + 2 * t4 + (e & 1);
               const bool in = t < c && a < M;
               const float z = in ? fmaf(dds[t], nin[a], za[nt][e]) : 0.f;
@@ -724,20 +747,20 @@ mlstm_bwd_grads_kernel(const float* __restrict__ q,
             sk[h] += __shfl_xor_sync(0xffffffffu, sk[h], 1);
             sk[h] += __shfl_xor_sync(0xffffffffu, sk[h], 2);
             if (t4 == 0) {
-              red[cgp * cp + r0 + g + 8 * h] = sq[h];
-              red[(ngr + cgp) * cp + r0 + g + 8 * h] = sk[h];
+              red[cgp * rcap + r0 + g + 8 * h] = sq[h];
+              red[(ngr + cgp) * rcap + r0 + g + 8 * h] = sk[h];
             }
           }
         }
         __syncthreads();
-        if (tid < c) {
+        if (tid < rcap && rb0 + tid < c) {
           float pq = 0.f, pk = 0.f;
           for (int x = 0; x < ngr; ++x) {
-            pq += red[x * cp + tid];
-            pk += red[(ngr + x) * cp + tid];
+            pq += red[x * rcap + tid];
+            pk += red[(ngr + x) * rcap + tid];
           }
-          part[tid] = pq;
-          part[c + tid] = pk;
+          part[rb0 + tid] = pq;
+          part[c + rb0 + tid] = pk;
         }
       }
       continue;
@@ -748,8 +771,8 @@ mlstm_bwd_grads_kernel(const float* __restrict__ q,
 #pragma unroll
     for (int kk = 0; kk < kDepth / 8; ++kk) {
       const int kg = k0 + 8 * kk;
-      const bool lower = kg <= r0 + 15;   // dS[t][s]: s <= t
-      const bool upper = kg + 7 >= r0;    // dS^T[s][t], A^T[s][t]: t >= s
+      const bool lower = kg <= tr0 + 15;  // dS[t][s]: s <= t
+      const bool upper = kg + 7 >= tr0;   // dS^T[s][t], A^T[s][t]: t >= s
       const int kr = 8 * kk + 2 * t4;
       const float* bk = bs + kr * kLdK + n0 + g;
       const float* bq = bk + kBSlot;
@@ -764,13 +787,13 @@ mlstm_bwd_grads_kernel(const float* __restrict__ q,
           mma3(za[nt], za[nt], a, bk[8 * nt], bk[kLdK + 8 * nt]);
       }
       if (upper) {
-        load_a(x, as + (cp + r0) * kLdA + 8 * kk, kLdA, g, t4);
+        load_a(x, as + (rcap + r0) * kLdA + 8 * kk, kLdA, g, t4);
         const Split<4> a(x);
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt)
           mma3(ya[nt], ya[nt], a, __fmul_rn(bq[8 * nt], inv_sqrt_m),
                __fmul_rn(bq[kLdK + 8 * nt], inv_sqrt_m));
-        load_a(x, as + (2 * cp + r0) * kLdA + 8 * kk, kLdA, g, t4);
+        load_a(x, as + (2 * rcap + r0) * kLdA + 8 * kk, kLdA, g, t4);
         const Split<4> b(x);
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt)
@@ -786,7 +809,7 @@ mlstm_bwd_grads_kernel(const float* __restrict__ q,
     for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int t = r0 + g + 8 * h;
+        const int t = tr0 + g + 8 * h;
         const int a = a0 + n0 + 8 * nt + 2 * t4;
         if (t < c && a < M) {
           const long long i = row0 + (long long)t * hd.pos + a;
@@ -804,7 +827,7 @@ mlstm_bwd_grads_kernel(const float* __restrict__ q,
   for (int o = 16; o; o >>= 1) pd += __shfl_xor_sync(0xffffffffu, pd, o);
   if (lane == 0) red8[warp] = pd;
   __syncthreads();
-  if (tid == 0) {
+  if (tid == 0 && rb == 0) {
     float s = 0.f;
     for (int w = 0; w < kThreads / 32; ++w) s += red8[w];
     part[2 * c] = s;
@@ -877,7 +900,7 @@ long long up4(long long n) { return (n + 3) & ~3LL; }
 // nc M (its dn), 4 B H nc cp^2 (A^T, dS, dS^T, dA S D) and B H nc
 // ceil(M / 64) (2 chunk + 1) (the shares), each part's start rounded up
 // to 4 elements; nc = S / chunk, cp = chunk rounded up to 16.  1 <= chunk
-// <= 128 divides S; 1 <= M <= 1024.  Launches five kernels on `stream`;
+// <= 256 divides S; 1 <= M <= 1024.  Launches five kernels on `stream`;
 // returns cudaGetLastError() (0 on success), or cudaErrorInvalidValue for
 // shapes it does not take.
 extern "C" int rimms_mlstm_bwd_f32(
@@ -893,7 +916,10 @@ extern "C" int rimms_mlstm_bwd_f32(
     return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return 0;
   const int nc = S / chunk, cp = (chunk + 15) & ~15;
-  const int np = (M + kCols - 1) / kCols, nrt = cp / 16;
+  const int np = (M + kCols - 1) / kCols;
+  // a grads block's rows: the chunk's, or a row block of 128 of them
+  const int rcap = cp < kRowBlock ? cp : kRowBlock;
+  const int nrb = (cp + kRowBlock - 1) / kRowBlock, nrt = rcap / 16;
   const int ntile = (cp + kCols - 1) / kCols;
   const long long bh = (long long)B * H;
   const unsigned nbh = (unsigned)bh;
@@ -917,7 +943,7 @@ extern "C" int rimms_mlstm_bwd_f32(
       ((size_t)kScoreStages * kScoreStage + 4 * kMaxChunk) * sizeof(float);
   const int gstages = nrt <= 4 ? 2 : 4;
   const size_t grads_smem =
-      ((size_t)gstages * (3 * cp * kLdA + 3 * kBSlot) + kGradsExtra) *
+      ((size_t)gstages * (3 * rcap * kLdA + 3 * kBSlot) + kGradsExtra) *
       sizeof(float);
   if (grads_smem > (size_t)kMaxSmem - 1024) return (int)cudaErrorInvalidValue;
 
@@ -946,7 +972,7 @@ extern "C" int rimms_mlstm_bwd_f32(
                     st>>>(
         fq, fk, fv, fig, fdh, vec, mats, S, H, M, chunk, inv_sqrt_m);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    grads_kernel<<<dim3(nc * np, nbh), kThreads, grads_smem, st>>>(
+    grads_kernel<<<dim3(nc * nrb * np, nbh), kThreads, grads_smem, st>>>(
         fq, fk, fv, fig, fdh, vec, mats, fcin, (const float*)n_in, dco, dno,
         (float*)dq, (float*)dk, (float*)dv, parts, S, H, M, chunk,
         inv_sqrt_m);
@@ -957,18 +983,26 @@ extern "C" int rimms_mlstm_bwd_f32(
   };
   // column tiles of 8 a warp owns: 8 / (row tiles) rounded to a power of
   // two, so row tiles x column groups <= 8 warps
+  // (a chunk above kRowBlock: its own instance, in row blocks)
   auto pick = [&](auto state_kernel, auto scores_kernel, auto g1, auto g2,
-                  auto g4, auto g8) {
-    return nrt == 1   ? run(state_kernel, scores_kernel, g1)
+                  auto g4, auto g8, auto gb) {
+    return nrb > 1    ? run(state_kernel, scores_kernel, gb)
+           : nrt == 1 ? run(state_kernel, scores_kernel, g1)
            : nrt == 2 ? run(state_kernel, scores_kernel, g2)
            : nrt <= 4 ? run(state_kernel, scores_kernel, g4)
                       : run(state_kernel, scores_kernel, g8);
   };
   return vec4
              ? pick(mlstm_bwd_state_kernel<4>, mlstm_bwd_scores_kernel<4>,
-                    mlstm_bwd_grads_kernel<4, 1>, mlstm_bwd_grads_kernel<4, 2>,
-                    mlstm_bwd_grads_kernel<4, 4>, mlstm_bwd_grads_kernel<4, 8>)
+                    mlstm_bwd_grads_kernel<4, 1, false>,
+                    mlstm_bwd_grads_kernel<4, 2, false>,
+                    mlstm_bwd_grads_kernel<4, 4, false>,
+                    mlstm_bwd_grads_kernel<4, 8, false>,
+                    mlstm_bwd_grads_kernel<4, 8, true>)
              : pick(mlstm_bwd_state_kernel<1>, mlstm_bwd_scores_kernel<1>,
-                    mlstm_bwd_grads_kernel<1, 1>, mlstm_bwd_grads_kernel<1, 2>,
-                    mlstm_bwd_grads_kernel<1, 4>, mlstm_bwd_grads_kernel<1, 8>);
+                    mlstm_bwd_grads_kernel<1, 1, false>,
+                    mlstm_bwd_grads_kernel<1, 2, false>,
+                    mlstm_bwd_grads_kernel<1, 4, false>,
+                    mlstm_bwd_grads_kernel<1, 8, false>,
+                    mlstm_bwd_grads_kernel<1, 8, true>);
 }

@@ -19,7 +19,9 @@ Two versions of one function, rows of complex64 along the last axis:
 
 Both produce natural order with no bit reversal, and both compute the
 inverse with a 1/N scale, which equals ``conj(fft(conj x))/N``.
-Supports power-of-two N from 2 to 2**20.
+Supports power-of-two N from 2 to 2**21 (:data:`MAX_POW2`); any other
+length up to :data:`MAX_N` goes through :mod:`.bluestein`, whose inner
+transforms reach 2**21.
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ import torch
 
 from .._build import check, launch, library
 
-__all__ = ["BLOCK_ROWS", "MAX_N", "TABLE_N", "TILE", "BLOCK_THREADS",
+__all__ = ["BLOCK_ROWS", "MAX_N", "MAX_POW2", "TABLE_N", "TILE", "tile",
+           "BLOCK_THREADS",
            "MAX_THREADS", "values", "radices", "launch_plan",
            "pass_twiddles", "twiddle_tables", "split", "step_twiddles",
            "step_table", "fft_kernel", "fft_plain", "launches"]
@@ -43,14 +46,28 @@ __all__ = ["BLOCK_ROWS", "MAX_N", "TABLE_N", "TILE", "BLOCK_THREADS",
 #: arithmetic depends on the rows beside it, so every value gives
 #: bit-identical output)
 BLOCK_ROWS = 8
-#: largest N the kernel takes
+#: longest row the op takes at any length (``ops.fft``: powers of two
+#: here, other lengths through :mod:`.bluestein`)
 MAX_N = 1 << 20
+#: largest power of two the kernel takes: Bluestein's inner length for N
+#: above 2**19
+MAX_POW2 = 1 << 21
 #: roots in the twiddle table: exp(-2 pi i k / TABLE_N), k < TABLE_N; also
 #: the largest N of one launch (longer rows take the four-step passes)
 TABLE_N = 8192
 #: lines (columns, then workspace rows) a four-step block takes side by
 #: side: 8 complex64 values, a 64-byte run of each strided access
 TILE = 8
+
+
+def tile(length: int) -> int:
+    """Lines a four-step block takes side by side for lines of ``length``:
+    :data:`TILE`, and half as many for lines of 2048 (pass 1 of 2**21),
+    where 8 would need 1024 threads and 256 KB (``csrc/fft.cu``
+    ``tile_log``)."""
+    return TILE if length <= 1024 else TILE // 2
+
+
 #: threads a block of short rows fills at least (rows allowing), and the
 #: most a block has (the kernel's launch bound)
 BLOCK_THREADS, MAX_THREADS = 256, 512
@@ -159,8 +176,8 @@ def twiddle_tables(device):
 def split(n: int):
     """``(N1, N2)`` of the four-step FFT of a row of ``n`` (a power of two
     above :data:`TABLE_N`): N1 = 2 ** ceil(p / 2) rows of N2 =
-    2 ** floor(p / 2), p = log2 n -- both at most 1024 up to
-    :data:`MAX_N`."""
+    2 ** floor(p / 2), p = log2 n -- both at most 1024 up to 2**20, and
+    2048 x 1024 at :data:`MAX_POW2`."""
     p = n.bit_length() - 1
     return 1 << (p - p // 2), 1 << (p // 2)
 
@@ -244,7 +261,7 @@ def _launch_args(index: int, n: int, rows: int, block_rows: int,
 def fft_kernel(x: torch.Tensor, *, inverse: bool = False,
                block_rows: int = BLOCK_ROWS) -> torch.Tensor:
     """x: contiguous complex64 on a CUDA device, its last axis a power of
-    two N from 2 to :data:`MAX_N` → the FFT (or inverse FFT) of every
+    two N from 2 to :data:`MAX_POW2` → the FFT (or inverse FFT) of every
     length-N row, in a fresh tensor of x's shape.  The caller has
     validated x; this launches on the current stream and does not
     wait.  Above :data:`TABLE_N` the two four-step launches count as one

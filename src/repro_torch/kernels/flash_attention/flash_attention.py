@@ -13,7 +13,12 @@ Two versions of one function over q (B, S, Hq, d) and k, v
   on the tensor cores (``wgmma``, the 64-row sub-tile a warpgroup's
   tile, f32 accumulation); float32 runs them as float32 FMAs on the
   CUDA cores (TF32 would miss the 2e-4 tolerance).  Scores never leave
-  registers;
+  registers.  A head width d runs at the compiled width of
+  :data:`HEAD_DIMS` next above it, the tiles' columns past d filled with
+  zeros as they are loaded and only d columns stored (no padded copy);
+  the float32 path takes chunks of 32 keys above width 128.  One block
+  per (batch·head, ``block_q`` rows) in the grid's x dimension, so B·Hq
+  has no limit of its own;
 * :func:`flash_attention_plain` is the same online softmax in torch ops
   over the same key tiles of ``block_k`` columns, all query rows at once
   — what a CPU tensor runs, and what the kernel is held against on the
@@ -40,17 +45,28 @@ import torch
 
 from .._build import check, launch, library
 
-__all__ = ["BLOCK_Q", "BLOCK_K", "MAX_BLOCK_K", "HEAD_DIMS", "NEG_INF",
+__all__ = ["BLOCK_Q", "BLOCK_K", "MAX_BLOCK_K", "HEAD_DIMS", "MAX_HEAD_DIM",
+           "padded_width", "NEG_INF",
            "flash_attention_kernel", "flash_attention_plain", "launches"]
 
 BLOCK_Q = 256
 BLOCK_K = 256
 #: widest key tile the kernel holds scores for in shared memory
 MAX_BLOCK_K = 512
-#: head widths the kernel is built for
-HEAD_DIMS = (64, 128)
+#: widths the kernel is built for: a head width d from 1 to
+#: :data:`MAX_HEAD_DIM` runs at the first of them >= d
+HEAD_DIMS = (64, 128, 192, 256)
+MAX_HEAD_DIM = HEAD_DIMS[-1]
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+
+def padded_width(d: int) -> int:
+    """The compiled width a head width ``d`` runs at (``csrc/
+    flash_attention.cu`` ``rimms_flash_attention``)."""
+    return next(w for w in HEAD_DIMS if w >= d)
+
 
 #: kernel launches since the count was last set to 0
 launches = 0

@@ -5,7 +5,7 @@ from __future__ import annotations
 import torch
 
 from .._build import refuse_dtensor, refuse_grad
-from .flash_attention import (BLOCK_K, BLOCK_Q, HEAD_DIMS, MAX_BLOCK_K,
+from .flash_attention import (BLOCK_K, BLOCK_Q, MAX_BLOCK_K, MAX_HEAD_DIM,
                               flash_attention_kernel, flash_attention_plain)
 
 
@@ -13,8 +13,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, block_q: int = BLOCK_Q,
                     block_k: int = BLOCK_K) -> torch.Tensor:
     """q: (B, S, Hq, d); k, v: (B, S, Hkv, d) with Hq % Hkv == 0, all
-    float32 or all bfloat16, d 64 or 128.  Returns (B, S, Hq, d) in q's
-    dtype.
+    float32 or all bfloat16, d from 1 to 256.  Returns (B, S, Hq, d) in
+    q's dtype.
 
     CUDA tensors go to the hand-written kernel; CPU tensors to the plain
     torch version; anything else raises.  ``block_q`` and ``block_k``
@@ -52,9 +52,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if hkv < 1 or hq % hkv:
         raise ValueError(f"flash_attention needs Hq ({hq}) a multiple of "
                          f"Hkv ({hkv})")
-    if d not in HEAD_DIMS:
+    if not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"flash_attention head width {d} unsupported: "
-                         f"one of {HEAD_DIMS}")
+                         f"1 to {MAX_HEAD_DIM}")
     if int(block_q) < 1 or int(block_k) < 1:
         raise ValueError(f"block_q and block_k must be positive, got "
                          f"{block_q}, {block_k}")

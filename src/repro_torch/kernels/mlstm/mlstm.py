@@ -9,7 +9,9 @@ token: C (B, H, m, m) with C[a, e] = Σ_s w_s k_s[a] v_s[e], and n
 * :func:`mlstm_kernel` launches the hand-written CUDA kernel
   (``csrc/mlstm.cu``) in two passes: one block per (head, chunk)
   computes the chunk's masked, decayed scores A once and A V on the
-  tensor cores, then one block per (16 columns of the m × m state C,
+  tensor cores (a chunk above 128 in blocks of 128 query rows, each
+  against its keys to the diagonal, one key block of 128 at a time),
+  then one block per (16 columns of the m × m state C,
   head) walks the chunks in order with its columns of C in shared
   memory (:func:`launch_plan` is its geometry);
 * :func:`mlstm_plain` is the same chunkwise algorithm in torch ops, one
@@ -42,15 +44,19 @@ import torch
 
 from .._build import check, launch, library
 
-__all__ = ["CHUNK", "MAX_CHUNK", "MAX_M", "launch_plan", "backward_plan",
+__all__ = ["CHUNK", "MAX_CHUNK", "ROW_BLOCK", "MAX_M", "launch_plan",
+           "backward_plan",
            "backward_work",
            "mlstm_kernel", "mlstm_plain", "mlstm_backward_kernel",
            "mlstm_backward_plain", "launches", "backward_launches"]
 
 CHUNK = 64
-#: largest chunk the kernel takes (its c × c scores sit in eight warps'
-#: registers, 16 rows a warp)
-MAX_CHUNK = 128
+#: largest chunk the kernel takes (the reference's ``rec_chunk`` of 256):
+#: the intra pass takes a chunk's rows in blocks of :data:`ROW_BLOCK`
+MAX_CHUNK = 256
+#: query rows of an intra block (eight warps of 16), and keys of a key
+#: block (a warp's 16 tiles of 8 in registers)
+ROW_BLOCK = 128
 #: largest head width the kernel takes (the second pass keeps m × 16 of
 #: C in shared memory beside a step's slices: 192 KB of the 227 KB at
 #: 1024 with chunk 128)
@@ -79,21 +85,31 @@ _count_lock = threading.Lock()
 
 def launch_plan(batch: int, s: int, h: int, m: int, chunk: int) -> dict:
     """The kernel's geometry for one call: the chunk padded to a
-    multiple of 16 (``cp``), each pass's grid and shared memory, the
+    multiple of 16 (``cp``); the instance (chunks of 128 or less, or up
+    to 256: ``max_chunk``, the second pass's depth ``slice``, 32 or 16,
+    and the row tiles each of its warps 4-7 owns); the first pass's row
+    blocks of :data:`ROW_BLOCK`; each pass's grid and shared memory, the
     second pass's steps a chunk (slices of m, at least two) and the
     workspace's float32 elements (A V in q's layout, then exp(cum), w,
     den and decay per head and chunk)."""
     cp = -(-chunk // 16) * 16
     nc = s // chunk
-    nm = -(-m // SLICE)
-    mp = nm * SLICE
+    big = cp > 128
+    maxc, sl = (MAX_CHUNK, SLICE // 2) if big else (128, SLICE)
+    nm = -(-m // sl)
+    mp = nm * sl
+    rcap, nrb = min(cp, ROW_BLOCK), -(-cp // ROW_BLOCK)
+    vec_pad = 3 * maxc + 4
     return {
         "cp": cp, "chunks": nc, "m_slices": nm, "steps": max(nm, 2),
-        "intra_grid": (nc, batch * h),
-        "intra_smem": 4 * (4 * cp * QS + cp * (cp + 8) + 2 * MAX_CHUNK),
+        "max_chunk": maxc, "slice": sl, "row_tiles_per_warp": maxc // 64,
+        "row_blocks": nrb,
+        "intra_grid": (nc * nrb, batch * h),
+        "intra_smem": 4 * (4 * rcap * QS + rcap * (cp + 8) + 2 * maxc),
         "inter_grid": (-(-m // COLS), batch * h),
-        "inter_smem": 4 * (COLS * (mp + 8) + mp + 2 * cp * QS + 3 * cp * KS
-                           + 2 * cp * VS + 2 * 4 * MAX_CHUNK + 2 * MAX_CHUNK),
+        "inter_smem": 4 * (COLS * (mp + 8) + mp + 2 * cp * (sl + 8)
+                           + 3 * cp * (sl + 4) + 2 * cp * VS + 2 * vec_pad
+                           + 2 * maxc),
         "work": batch * s * h * m + batch * h * nc * (3 * chunk + 1),
     }
 
@@ -121,7 +137,9 @@ def backward_work(batch: int, s: int, h: int, m: int, chunk: int) -> int:
 
 def backward_plan(batch: int, s: int, h: int, m: int, chunk: int) -> dict:
     """The backward kernel's geometry for one call: the chunk padded to a
-    multiple of 16 (``cp``), 16-row tiles of it, 64-column tiles of m;
+    multiple of 16 (``cp``), the grads kernel's row blocks of
+    :data:`ROW_BLOCK` token rows (one up to a chunk of 128) and the
+    16-row tiles of one, 64-column tiles of m;
     each kernel's grid and shared memory; the grads kernel's column
     tiles of 8 a warp (``nt``: 8 / row tiles, rounded to a power of two),
     warp tasks (row tile x column group), ring stages (two when ``nt`` <=
@@ -134,13 +152,15 @@ def backward_plan(batch: int, s: int, h: int, m: int, chunk: int) -> dict:
     nc = s // chunk
     bh = batch * h
     col_tiles = -(-m // BWD_COLS)
-    nrt = cp // 16
+    rcap, nrb = min(cp, ROW_BLOCK), -(-cp // ROW_BLOCK)
+    nrt = rcap // 16
     nt = 1 if nrt == 1 else 2 if nrt == 2 else 4 if nrt <= 4 else 8
     stages = 2 if nt <= 4 else 4
     score_tiles = -(-cp // BWD_COLS)
     extra = 4 * MAX_CHUNK + 2 * MAX_CHUNK + THREADS // 32
     return {
         "cp": cp, "chunks": nc, "col_tiles": col_tiles, "row_tiles": nrt,
+        "row_blocks": nrb,
         "nt": nt, "col_groups": 8 // nt, "tasks": nrt * (8 // nt),
         "grads_stages": stages,
         "grads_steps": -(-m // BWD_DEPTH) + cp // BWD_DEPTH,
@@ -148,13 +168,13 @@ def backward_plan(batch: int, s: int, h: int, m: int, chunk: int) -> dict:
         "prep_grid": (nc, bh, -(-chunk // BWD_TOK)),
         "state_grid": (col_tiles * col_tiles, bh),
         "scores_grid": (nc * score_tiles * score_tiles, bh),
-        "grads_grid": (nc * col_tiles, bh),
+        "grads_grid": (nc * nrb * col_tiles, bh),
         "gates_grid": (nc, bh),
         "state_smem": 4 * (STATE_STAGES * (2 * BWD_TOK * LDK + 3 * BWD_TOK
                                            + 4) + BWD_COLS * LDK),
         "scores_smem": 4 * (SCORE_STAGES * 4 * BWD_COLS * LDA
                             + 4 * MAX_CHUNK),
-        "grads_smem": 4 * (stages * (3 * cp * LDA + 3 * BSLOT) + extra),
+        "grads_smem": 4 * (stages * (3 * rcap * LDA + 3 * BSLOT) + extra),
         "work": backward_work(batch, s, h, m, chunk),
     }
 
@@ -260,7 +280,10 @@ def mlstm_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         qc, kc, vc, ic = qh[:, sl], kh[:, sl], vh[:, sl], ih[:, sl]
         cum = torch.cumsum(fh[:, sl], dim=-1)                    # (BH, c)
         scores = qc @ kc.transpose(-1, -2)
-        dlt = cum[:, :, None] - cum[:, None, :]
+        # the decay masked before its exp: above the diagonal cum_t - cum_s
+        # is positive and, over a long chunk, overflows, and autograd of a
+        # masked inf is inf * 0 = nan (the same values below it)
+        dlt = torch.where(mask, cum[:, :, None] - cum[:, None, :], -math.inf)
         a = torch.where(mask, scores * torch.exp(dlt) * ic[:, None, :],
                         torch.zeros((), dtype=q.dtype, device=q.device))
         ecum = torch.exp(cum)[..., None]

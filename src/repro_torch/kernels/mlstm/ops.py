@@ -56,7 +56,7 @@ def mlstm_chunkwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     through an autograd ``Function`` whose backward goes the same way:
     the backward kernel, or its plain version on the CPU (the gradient
     of the final state seeds it).  ``chunk`` is clamped to S, as
-    the reference clamps it, must then divide S and be at most 128, and
+    the reference clamps it, must then divide S and be at most 256, and
     m is at most 1024.  Different chunks agree only to rounding."""
     named = (("q", q), ("k", k), ("v", v), ("i_gate", i_gate),
              ("log_f", log_f))

@@ -9,7 +9,10 @@ ranks or more, else a local ``data=world`` mesh, and the Trainer runs
 under its axis rules.  On a world of one rank every leaf stays a plain
 tensor on the device (as a one-device JAX array is a plain array), so
 the model runs as without the flag; a world above one rank raises
-(ROADMAP C.21: a multi-GPU trainer cannot be tested on one card).
+(ROADMAP C.21), as the JAX package's launcher fails on two devices: its
+``Trainer`` commits the state to one device, and the first sharding
+constraint over the mesh refuses it ("Received incompatible devices for
+jitted computation").
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \\
@@ -49,7 +52,9 @@ def _mesh_rules(multi_pod: bool, device_type: str):
     if world > 1:
         raise NotImplementedError(
             f"launch.train --distributed on {world} ranks: the port trains "
-            f"on one rank only (ROADMAP C.21)")
+            f"on one rank only, as the JAX package's launcher does (its "
+            f"Trainer's state sits on one device and a world of two fails "
+            f"there; ROADMAP C.21)")
     return rules_for_mesh(mesh)
 
 

@@ -9,10 +9,9 @@ Where the reference's prefill runs its own chunkwise einsums and
 * **mLSTM** prefill is one call of
   :func:`repro_torch.kernels.mlstm.ops.mlstm_chunkwise`, which also
   returns the final state (C, n) the prefill cache holds.  Its chunk is
-  the reference's ``divisor_chunk(S, rec_chunk)`` with ``rec_chunk``
-  clamped to the kernel's :data:`~repro_torch.kernels.mlstm.mlstm.MAX_CHUNK`
-  (the full configs ask for 256): chunks agree only to rounding.  The
-  kernel takes q unscaled and divides it by √m in float32, where the
+  the reference's ``divisor_chunk(S, rec_chunk)`` (the full configs ask
+  for 256, the kernel's :data:`~repro_torch.kernels.mlstm.mlstm.MAX_CHUNK`).
+  The kernel takes q unscaled and divides it by √m in float32, where the
   reference divides in the compute dtype; decode keeps the reference's
   one-step update, scaled q and all, in torch ops.
 * **sLSTM** has a true nonlinear recurrence and no kernel in either
@@ -47,7 +46,6 @@ import torch.nn.functional as F
 
 from repro_torch.distributed.sharding import P, shard
 from repro_torch.kernels.mlstm import ops as mlstm_ops
-from repro_torch.kernels.mlstm.mlstm import MAX_CHUNK
 from repro_torch.kernels.rg_lru import ops as rg_lru_ops
 
 from . import layers as L
@@ -146,9 +144,8 @@ class MLSTMLayer:
     @staticmethod
     def prefill_chunk(cfg, s: int) -> int:
         """The kernel's chunk for a prefill of ``s`` tokens: the
-        reference's ``divisor_chunk(s, rec_chunk)`` with ``rec_chunk``
-        clamped to what the kernel takes."""
-        return L.divisor_chunk(s, min(cfg.rec_chunk, MAX_CHUNK))
+        reference's ``divisor_chunk(s, rec_chunk)``."""
+        return L.divisor_chunk(s, cfg.rec_chunk)
 
     @staticmethod
     def _up(cfg, params, x):

@@ -116,9 +116,9 @@ def test_fft_kernel_rows_at_odd_offset(cuda, offset, n):
     assert torch.equal(base, before)
 
 
-@pytest.mark.parametrize("n", [2 ** p for p in range(14, 21)])
+@pytest.mark.parametrize("n", [2 ** p for p in range(14, 22)])
 def test_fft_kernel_four_step_every_large_length(cuda, n):
-    """Every power of two from 16384 to 2^20 (two launches, one count) in
+    """Every power of two from 16384 to 2^21 (two launches, one count) in
     1 and 3 rows, forward and inverse, against the plain version and
     torch.fft; block_rows has no effect; a row's bits do not depend on
     the rows beside it; the input is left unwritten."""
@@ -192,6 +192,33 @@ def test_main_path_runs_on_kernels(cuda):
                                rtol=1e-3, atol=1e-3 * math.sqrt(1024))
 
 
+@pytest.mark.parametrize("n", [3, 12, 1000, 1536, 4095, 12289, 100000,
+                               524287, (1 << 20) - 1])
+def test_fft_any_length_through_bluestein(cuda, n):
+    """A length that is not a power of two: two FFT and three ZIP
+    launches a call, against the same composition over the plain versions
+    and numpy's complex128 FFT; bit-identical across block_rows."""
+    from repro_torch.kernels.fft import bluestein as BL
+
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn(2, n, dtype=torch.complex64, device=cuda, generator=gen)
+    BL.tables(n, False, cuda), BL.tables(n, True, cuda)
+    for fwd in (True, False):
+        counts = (F.launches, Z.launches)
+        got = fft_ops.fft(x, fwd)
+        assert (F.launches, Z.launches) == (counts[0] + 2, counts[1] + 3)
+        s = 1 if fwd else n
+        want = BL.bluestein_plain(x, inverse=not fwd)
+        # the power-of-two rtol and atol of its inner length (3e-3)
+        tol = 3e-3 * (math.sqrt(n) + float(want.abs().max() * s))
+        assert float((got - want).abs().max() * s) <= tol
+        ref = np.fft.fft(x.cpu().numpy().astype(np.complex128)) if fwd \
+            else np.fft.ifft(x.cpu().numpy().astype(np.complex128)) * n
+        assert float(np.abs(got.cpu().numpy() * s - ref).max()) <= tol
+        for br in (32, 128):
+            assert torch.equal(fft_ops.fft(x, fwd, block_rows=br), got)
+
+
 #: tests/test_kernels.py's sweep in both dtypes, the ragged S = 300
 #: non-causal case with block_k 100, and S not a multiple of 16 or 64
 FLASH_CASES = [
@@ -204,7 +231,13 @@ FLASH_CASES = [
         (1, 300, 4, 1, 128, 100, False),
         (1, 300, 4, 1, 128, 100, True),
         (2, 197, 4, 2, 64, 64, True),
-        (1, 77, 2, 2, 128, 512, False))
+        (1, 77, 2, 2, 128, 512, False),
+        # head widths run at a padded compiled width, and element-wise
+        # loads (d not a multiple of 16 bytes' elements)
+        (1, 256, 2, 2, 32, 128, True), (1, 200, 2, 1, 80, 100, False),
+        (1, 256, 2, 2, 96, 128, True), (1, 200, 4, 2, 160, 64, True),
+        (1, 256, 2, 2, 256, 128, True), (2, 130, 2, 2, 33, 64, False),
+        (1, 96, 2, 1, 36, 64, True))
     for dt in (torch.float32, torch.bfloat16)]
 
 
@@ -250,7 +283,10 @@ def test_rg_lru_kernel_bit_equal_to_plain(cuda, B, S, D):
 
 @pytest.mark.parametrize("B,S,H,m,chunk", [(2, 64, 2, 128, 16),
                                            (1, 32, 4, 64, 8),
-                                           (1, 256, 2, 512, 64)])
+                                           (1, 256, 2, 512, 64),
+                                           (1, 512, 2, 512, 256),
+                                           (1, 400, 1, 40, 200),
+                                           (1, 512, 1, 1024, 256)])
 def test_mlstm_kernel_matches_plain(cuda, B, S, H, m, chunk):
     gen = torch.Generator(device=cuda).manual_seed(m)
     q, k, v = (torch.randn(B, S, H, m, device=cuda, generator=gen) * sc
@@ -502,7 +538,10 @@ def test_wrappers_refuse_grad_on_cuda(cuda, name):
     # ragged edges: m past a 64-column tile, chunks not multiples of 16
     (1, 96, 1, 200, 48, True), (1, 80, 2, 96, 40, False),
     (1, 30, 2, 33, 10, True), (1, 240, 1, 72, 120, False),
-    (1, 256, 1, 1024, 128, True)])
+    (1, 256, 1, 1024, 128, True),
+    # chunks past 128: the grads pass in row blocks of 128
+    (1, 1024, 4, 512, 256, False), (1, 512, 2, 64, 256, True),
+    (1, 400, 1, 40, 200, False)])
 def test_mlstm_backward_kernel_matches_autograd_of_plain(cuda, B, S, H, m,
                                                          chunk, state):
     """``loss.backward()`` through ``mlstm_chunkwise`` on the card

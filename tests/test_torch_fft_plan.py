@@ -328,8 +328,9 @@ def _four_step_geometry(n, rows):
     n1, n2 = F.split(n)
 
     def geometry(length, lines):
-        return (F.TILE * (length // F.values(length)),
-                rows * (lines // F.TILE), 2 * F.TILE * length * 8)
+        tile = F.tile(length)
+        return (tile * (length // F.values(length)),
+                rows * (lines // tile), 2 * tile * length * 8)
 
     return geometry(n1, n2), geometry(n2, n1)
 
@@ -396,10 +397,11 @@ def _tile_addresses(n, first, load):
     every block of a row: ``[(block, [(thread, k, address)])]``."""
     n1, n2 = F.split(n)
     length, lines = (n1, n2) if first else (n2, n1)
-    threads = F.TILE * length // F.values(length)
+    tile = F.tile(length)
+    threads = tile * length // F.values(length)
     blocks = []
-    for b in range(lines // F.TILE):
-        col0 = b * F.TILE
+    for b in range(lines // tile):
+        col0 = b * tile
         acc = []
         for k in range(F.values(length)):
             for tid in range(threads):
@@ -408,7 +410,7 @@ def _tile_addresses(n, first, load):
                     c, e = divmod(idx, length)
                     addr = (col0 + c) * length + e
                 else:  # a column of the row seen as length x lines
-                    c, e = idx % F.TILE, idx // F.TILE
+                    c, e = idx % tile, idx // tile
                     addr = e * lines + col0 + c
                 acc.append((tid, k, addr))
         blocks.append(acc)
@@ -499,3 +501,46 @@ def test_launch4_args_carry_the_plan(n, inverse):
     assert torch.equal(step, torch.from_numpy(F.step_twiddles(n)))
     assert (args.rows, args.n, args.inverse) == (3, n, int(inverse))
     assert F._launch4_args(-1, n, 3, inverse)[1] is args
+
+
+# ------------------------------------------- 2^21: Bluestein's inner length
+def test_the_kernel_takes_bluestein_inner_length():
+    """N above 2^19 needs inner transforms of 2^21: N1 x N2 = 2048 x 1024,
+    pass 1's lines of 2048 four to a block (512 threads, 128 KB of
+    exchange buffers), pass 2's eight."""
+    n = F.MAX_POW2
+    assert n == 2 ** 21
+    assert F.split(n) == (2048, 1024)
+    assert (F.tile(2048), F.tile(1024), F.tile(128)) == (4, 8, 8)
+    assert len(F.radices(2048)) >= 2
+    for rows in ROWS + (2 ** 10,):
+        for threads, grid, smem in _four_step_geometry(n, rows):
+            assert 1 <= threads <= KERNEL_MAX_THREADS
+            assert 1 <= grid <= MAX_GRID_X
+            assert smem <= MAX_SMEM
+
+
+@pytest.mark.parametrize("first", [True, False], ids=["pass1", "pass2"])
+@pytest.mark.parametrize("load", [True, False], ids=["load", "store"])
+def test_four_step_tiles_at_2_21_cover_a_row_in_whole_sectors(first, load):
+    blocks = _tile_addresses(F.MAX_POW2, first, load)
+    every = [a for blk in blocks for _, _, a in blk]
+    assert sorted(every) == list(range(F.MAX_POW2))
+    for blk in blocks[:64]:
+        by_warp = {}
+        for tid, k, addr in blk:
+            by_warp.setdefault((k, tid // 32), []).append(addr)
+        for addrs in by_warp.values():
+            sectors = {a // 4 for a in addrs}
+            assert len(sectors) * 4 == len(addrs)
+
+
+def test_four_step_exchange_of_four_lines_of_2048_has_no_conflicts():
+    assert _exchange_conflicts(2048, F.tile(2048)) == 1
+
+
+def test_launch4_args_at_2_21():
+    addr, args, (table, step) = F._launch4_args(-1, F.MAX_POW2, 1, True)
+    ptrs = F.twiddle_tables("cpu")[1]
+    assert (args.twiddles1, args.twiddles2) == (ptrs[11], ptrs[10])
+    assert step.shape == (F.MAX_POW2,) and args.n == F.MAX_POW2

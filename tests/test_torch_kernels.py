@@ -104,8 +104,8 @@ def test_fft_block_rows_bit_identical():
 @pytest.mark.parametrize("bad,exc", [
     (torch.zeros(2, 64, dtype=torch.complex128), TypeError),
     (torch.zeros(2, 64, dtype=torch.float32), TypeError),
-    (torch.zeros(2, 48, dtype=torch.complex64), ValueError),
-    (torch.zeros(2, 1 << 21, dtype=torch.complex64), ValueError),
+    (torch.zeros(2, (1 << 20) + 1, dtype=torch.complex64), ValueError),
+    (torch.zeros(2, 1 << 22, dtype=torch.complex64), ValueError),
     (torch.zeros(2, 1, dtype=torch.complex64), ValueError),
     (torch.zeros(64, 2, dtype=torch.complex64).t(), ValueError),
     (torch.zeros(2, 64, dtype=torch.complex64, device="meta"), ValueError),
@@ -113,6 +113,102 @@ def test_fft_block_rows_bit_identical():
 def test_fft_rejects(bad, exc):
     with pytest.raises(exc):
         tfft_ops.fft(bad)
+
+
+# --------------------------------------------------- fft at any length ----
+#: lengths that are not powers of two: Bluestein's algorithm over the
+#: port's FFT and ZIP (inner lengths 8, 32, 2048, 4096 and 8192)
+ANY_N = [3, 12, 1000, 1536, 4095]
+
+
+@pytest.mark.parametrize("forward", [True, False], ids=["fwd", "inv"])
+@pytest.mark.parametrize("rows", [1, 3], ids=["rows1", "rows3"])
+@pytest.mark.parametrize("n", ANY_N)
+def test_fft_any_length_matches_jnp_fft(n, rows, forward):
+    """The JAX package's device op at these lengths is ``jnp.fft.fft``
+    (``repro.apps.radar._jfft`` / ``_jifft``; its Pallas FFT takes powers
+    of two only): the port's CPU path, Bluestein over the plain versions,
+    agrees with it at the power-of-two tolerance, an inverse times n."""
+    from repro.apps import radar as jradar
+
+    x = crandn(np.random.default_rng([n, rows, forward]), rows, n)
+    want = np.asarray(jradar._jfft(x) if forward else jradar._jifft(x))
+    got = tfft_ops.fft(torch.from_numpy(x), forward=forward)
+    assert got.dtype == torch.complex64 and got.shape == (rows, n)
+    rtol, atol = fft_tol(n)
+    s = 1 if forward else n
+    np.testing.assert_allclose(got.numpy() * s, want * s, rtol=rtol,
+                               atol=atol)
+
+
+def test_bluestein_chirp_keeps_its_phase_at_the_longest_length():
+    """The chirp's angle comes from k^2 mod 2N in int64: at N = 2^20 - 1
+    every entry is within float32 rounding of the exact root (k^2 in
+    float32 would be off by whole turns past k of a few thousand)."""
+    from repro_torch.kernels.fft import bluestein as BL
+
+    n = (1 << 20) - 1
+    k = np.arange(n - 4096, n, dtype=np.int64)
+    exact = np.exp(-1j * np.pi * ((k * k) % (2 * n)) / n)
+    w = BL.chirp(n, False)
+    assert w.dtype == np.complex64 and w.shape == (n,)
+    assert np.max(np.abs(w[n - 4096:] - exact)) < 2 ** -23
+    assert np.array_equal(BL.chirp(n, True), np.conj(w))
+
+
+@pytest.mark.parametrize("n", [3, 1000, (1 << 19) + 1, (1 << 20) - 1])
+def test_bluestein_inner_length_and_filter(n):
+    """M is the least power of two >= 2N - 1 (2^21 above 2^19, which the
+    kernel takes); the filter is conj(w) at m and M - m, zeros between,
+    and the inverse's carries the 1/N."""
+    from repro_torch.kernels.fft import bluestein as BL
+    from repro_torch.kernels.fft import fft as F
+
+    m = BL.inner_length(n)
+    assert m & (m - 1) == 0 and m >= 2 * n - 1 and m // 2 < 2 * n - 1
+    assert m <= F.MAX_POW2
+    if n < 2000:
+        for inverse in (False, True):
+            b = BL.filter_taps(n, inverse)
+            w = BL.chirp(n, inverse)
+            scale = 1.0 / n if inverse else 1.0
+            assert b.shape == (m,) and b.dtype == np.complex64
+            np.testing.assert_allclose(b[:n], np.conj(w) * scale, rtol=0,
+                                       atol=1e-7)
+            np.testing.assert_allclose(b[m - n + 1:][::-1],
+                                       np.conj(w[1:]) * scale, rtol=0,
+                                       atol=1e-7)
+            assert not b[n:m - n + 1].any()
+
+
+def test_bluestein_launches_and_block_rows(monkeypatch):
+    """On the card one call is two FFT launches (forward, then inverse, of
+    length M, each with the caller's block_rows) and three ZIP launches,
+    after one FFT of the filter when its table is built: stand-ins for the
+    kernels (the plain versions, counted) show it on the CPU."""
+    from repro_torch.kernels.fft import bluestein as BL
+    from repro_torch.kernels.fft import fft as F
+    from repro_torch.kernels.zip import zip as Z
+
+    calls = []
+
+    def fake_fft(a, *, inverse=False, block_rows=F.BLOCK_ROWS):
+        calls.append(("fft", a.shape[-1], inverse, block_rows))
+        return F.fft_plain(a, inverse=inverse)
+
+    def fake_zip(a, b, *, block_rows=Z.BLOCK_ROWS):
+        calls.append(("zip", a.shape))
+        return Z.zip_plain(a, b)
+
+    monkeypatch.setattr(BL, "fft_kernel", fake_fft)
+    monkeypatch.setattr(BL, "zip_kernel", fake_zip)
+    x = torch.from_numpy(crandn(np.random.default_rng(7), 2, 1000))
+    want = BL.bluestein_plain(x, inverse=False)
+    got = BL.bluestein_kernel(x, inverse=False, block_rows=32)
+    assert calls == [("zip", (2, 1000)), ("fft", 2048, False, 32),
+                     ("zip", (2, 2048)), ("fft", 2048, True, 32),
+                     ("zip", (2, 1000))]
+    assert torch.equal(got, want)
 
 
 # ---------------------------------------------------------------- zip ----

@@ -383,13 +383,44 @@ def test_layer_train_gradients_match_jax_vjp(arch, layer, S):
     parameter, against ``jax.vjp`` of the JAX package's layer at
     ``smoke()`` size in float32 (rec_chunk 8: three and five mLSTM
     chunks; the RG-LRU in one and three of its 64-step chunks)."""
-    cfg = dataclasses.replace(get_config(arch).smoke(), dtype="float32")
-    jcfg = dataclasses.replace(jget_config(arch).smoke(), dtype="float32")
+    _layer_vjp_check(arch, layer, S, 2)
+
+
+def test_mlstm_layer_gradients_at_chunk_256_match_jax_vjp():
+    """The port's layer at the full configs' rec_chunk of 256 (two chunks
+    of 256: the backward kernel's grads pass takes them in row blocks of
+    128 on the card; here the plain backward) against ``jax.vjp`` of the
+    JAX package's layer.  The JAX layer's own gradient at chunk 256 is
+    not finite: its ``where(mask, exp(cum_t - cum_s), 0)`` overflows above
+    the diagonal and the ``where``'s gradient multiplies that inf by 0.
+    So the JAX side runs rec_chunk 8, whose gradient is the same function
+    up to rounding (chunks change only the order of sums)."""
+    _layer_vjp_check("xlstm_350m", "MLSTMLayer", 512, 1,
+                     port={"rec_chunk": 256}, ref={"rec_chunk": 8})
+
+
+def test_mlstm_backward_at_chunk_256_matches_autograd_of_plain():
+    B, S, H, m, c = 1, 512, 2, 24, 256
+    ins = mlstm_inputs(B, S, H, m, seed=77)
+    dh = torch.from_numpy(np.random.default_rng(78).standard_normal(
+        (B, S, H, m)).astype(np.float32))
+    leaves_ = [t.clone().requires_grad_(True) for t in ins]
+    h = mlstm_ops.mlstm_chunkwise(*leaves_, chunk=c)
+    got = torch.autograd.grad(h, leaves_, dh)
+    assert_grads_close(got, autograd_mlstm(ins, (dh,), c, False), F32_TOL,
+                       "mlstm chunk 256")
+
+
+def _layer_vjp_check(arch, layer, S, batch, port=None, ref=None):
+    cfg = dataclasses.replace(get_config(arch).smoke(), dtype="float32",
+                              **(port or {}))
+    jcfg = dataclasses.replace(jget_config(arch).smoke(), dtype="float32",
+                               **(ref or {}))
     jl, tl = getattr(JR, layer), getattr(TR, layer)
     jp = jl.init(jcfg, jax.random.key(21))
     rng = np.random.default_rng(22)
-    x = rng.standard_normal((2, S, cfg.d_model)).astype(np.float32)
-    gy = rng.standard_normal((2, S, cfg.d_model)).astype(np.float32)
+    x = rng.standard_normal((batch, S, cfg.d_model)).astype(np.float32)
+    gy = rng.standard_normal((batch, S, cfg.d_model)).astype(np.float32)
     jy, vjp = jax.vjp(lambda p, x: jl.apply(jcfg, p, x, mode="train")[0],
                       jp, jnp.asarray(x))
     jgp, jgx = vjp(jnp.asarray(gy))

@@ -19,9 +19,9 @@ Tolerances:
 * ``F32_TOL`` = 1e-4 (rtol and atol), a layer or a model in float32:
   the same math, summed in another order (a chunked scan against an
   associative scan, another matmul order).
-* ``CONSISTENCY_TOL`` = 2e-3, prefill↔decode and the clamped chunk: the
-  reference's own bound for chunkwise against stepwise math and for two
-  chunk sizes (``tests/test_models_smoke.py``).
+* ``CONSISTENCY_TOL`` = 2e-3, prefill↔decode: the reference's own bound
+  for chunkwise against stepwise math and for two chunk sizes
+  (``tests/test_models_smoke.py``).
 * bfloat16 logits within ``BF16_ULPS`` = 8 ulps of the largest reference
   logit: the two frameworks round at other points (XLA keeps a fused
   elementwise chain's intermediates in float32, eager torch rounds after
@@ -140,12 +140,13 @@ def test_layer_prefill_and_decode_match_reference(arch, layer):
         assert_tree_close(tc, jc, F32_TOL, f"{layer} decode cache at {pos}")
 
 
-def test_mlstm_prefill_with_the_clamped_chunk():
-    """The full configs' ``rec_chunk`` 256 is more than the kernel takes:
-    at S 512 the port runs chunk 128 where the reference runs 256, and
-    the two agree within the reference's bound for two chunk sizes."""
+def test_mlstm_prefill_at_the_reference_chunk_of_256():
+    """The full configs' ``rec_chunk`` 256: at S 512 the port's prefill
+    runs chunk 256, as the reference does, and the layer's output and
+    prefill cache agree with the reference's ``MLSTMLayer.apply`` at the
+    float32 tolerance of the other layer tests."""
     cfg, jcfg = cfgs("xlstm_350m", rec_chunk=256)
-    assert TR.MLSTMLayer.prefill_chunk(cfg, 512) == ML.MAX_CHUNK
+    assert TR.MLSTMLayer.prefill_chunk(cfg, 512) == 256 == ML.MAX_CHUNK
     jp = JR.MLSTMLayer.init(jcfg, jax.random.key(6))
     tp = to_torch(jp)
     x = np.random.default_rng(8).normal(
@@ -153,9 +154,9 @@ def test_mlstm_prefill_with_the_clamped_chunk():
     jy, jc = JR.MLSTMLayer.apply(jcfg, jp, jnp.asarray(x), mode="prefill")
     ty, tc = TR.MLSTMLayer.apply(cfg, tp, torch.from_numpy(x),
                                  mode="prefill")
-    np.testing.assert_allclose(as_np(ty), as_np(jy), rtol=CONSISTENCY_TOL,
-                               atol=CONSISTENCY_TOL)
-    assert_tree_close(tc, jc, CONSISTENCY_TOL, "clamped chunk cache")
+    np.testing.assert_allclose(as_np(ty), as_np(jy), rtol=F32_TOL,
+                               atol=F32_TOL)
+    assert_tree_close(tc, jc, F32_TOL, "chunk 256 cache")
 
 
 def test_mlstm_op_state_is_the_reference_layers_final_state():

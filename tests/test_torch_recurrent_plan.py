@@ -519,3 +519,135 @@ def test_mlstm_backward_ring_reuses_a_stage_after_reading_it():
             assert stage == (st - 1) % n
             prev = nxt - n  # the step that stage held
             assert prev < 0 or read_at[prev] < st
+
+
+# ------------------------------------------- mLSTM above a chunk of 128 ----
+#: (B, S, H, m, chunk) past 128: the reference's 256 at xLSTM's width and
+#: at the largest m, and chunks that are not multiples of 128 or of 16
+ML_BIG = [(1, 4096, 4, 512, 256), (1, 512, 1, 1024, 256),
+          (1, 384, 2, 72, 192), (1, 400, 1, 40, 200), (2, 512, 2, 64, 256)]
+
+
+@pytest.mark.parametrize("B,S,H,m,c", ML_BIG)
+def test_mlstm_plan_above_128_fits_the_card(B, S, H, m, c):
+    """The instance for chunks above 128: slices of 16 in the second pass
+    (its rings of a chunk's rows), four row tiles a warp, and the first
+    pass's row blocks of 128 -- every pass within a block's shared
+    memory."""
+    plan = ML.launch_plan(B, S, H, m, c)
+    assert plan["cp"] > 128 and plan["max_chunk"] == ML.MAX_CHUNK == 256
+    assert plan["slice"] == ML.SLICE // 2 and plan["row_tiles_per_warp"] == 4
+    assert plan["intra_smem"] <= SMEM_LIMIT
+    assert plan["inter_smem"] <= SMEM_LIMIT
+    assert plan["row_blocks"] == 2
+    assert plan["intra_grid"] == (2 * (S // c), B * H)
+    assert plan["m_slices"] == -(-m // 16) and plan["steps"] >= 2
+    small = ML.launch_plan(B, S, H, m, 128 if S % 128 == 0 else 16)
+    assert small["slice"] == ML.SLICE and small["row_blocks"] == 1
+
+
+@pytest.mark.parametrize("B,S,H,m,c", ML_BIG[2:])
+def test_mlstm_row_blocks_cover_each_score_and_output_once(B, S, H, m, c):
+    """Pass 1 above 128: row block rb's warp w owns rows 128 rb + 16 w..;
+    it takes key blocks 0..rb, all 16 tiles of 8 of a block before its
+    own and the tiles to its diagonal of its own, so each (t, s <= t) of
+    A is one block's once; A V's (row, column) once a slice of v.  Pass
+    2: warps 4-7 own row tiles w + 4 r (r < 4) and write each (row,
+    column) of h once; warps 0-1 update each (row, column) of the block's
+    16 columns of C once a slice of 16, and n's columns once."""
+    plan = ML.launch_plan(B, S, H, m, c)
+    cp, rb_n = plan["cp"], plan["row_blocks"]
+    g, t4 = _lanes()
+    score = np.zeros((cp, cp), np.int64)
+    av = np.zeros((c, m), np.int64)
+    for rb in range(rb_n):
+        r0 = rb * ML.ROW_BLOCK
+        nr = min(cp - r0, ML.ROW_BLOCK)
+        for w in range(8):
+            if 16 * w >= nr:
+                continue
+            for kb in range(rb + 1):
+                ntiles = 16 if kb < rb else min(2 * w + 2, nr // 8)
+                for nt in range(ntiles):
+                    for e in range(4):
+                        t = r0 + 16 * w + g + 8 * (e >> 1)
+                        s = kb * ML.ROW_BLOCK + 8 * nt + 2 * t4 + (e & 1)
+                        np.add.at(score, (t, s), 1)
+            for sl in range(-(-m // ML.SLICE)):
+                for nt in range(ML.SLICE // 8):
+                    for e in range(4):
+                        t = r0 + 16 * w + g + 8 * (e >> 1)
+                        i = sl * ML.SLICE + 8 * nt + 2 * t4 + (e & 1)
+                        ok = (t < c) & (i < m)
+                        np.add.at(av, (t[ok], i[ok]), 1)
+    tt, ss = np.meshgrid(np.arange(cp), np.arange(cp), indexing="ij")
+    assert (score[ss <= tt] == 1).all()  # every product a row needs
+    assert (av == 1).all()
+    sl, nm = plan["slice"], plan["m_slices"]
+    out = np.zeros((c, m), np.int64)
+    ccov = np.zeros((nm * sl, plan["inter_grid"][0] * ML.COLS), np.int64)
+    ncov = np.zeros(nm * sl, np.int64)
+    for bx in range(plan["inter_grid"][0]):
+        e0 = bx * ML.COLS
+        for w4 in range(4):
+            for u in range(2 * plan["row_tiles_per_warp"]):
+                rt, nt = w4 + 4 * (u >> 1), u & 1
+                if rt >= cp // 16:
+                    continue
+                for e in range(4):
+                    t = 16 * rt + g + 8 * (e >> 1)
+                    col = e0 + 8 * nt + 2 * t4 + (e & 1)
+                    ok = (t < c) & (col < m)
+                    np.add.at(out, (t[ok], col[ok]), 1)
+        for z in range(nm):
+            for warp in range(4):
+                rt, nt = warp >> 1, warp & 1
+                if 16 * rt < sl:
+                    for e in range(4):
+                        row = z * sl + 16 * rt + g + 8 * (e >> 1)
+                        col = e0 + 8 * nt + 2 * t4 + (e & 1)
+                        np.add.at(ccov, (row, col), 1)
+                lane = np.arange(32)
+                if bx == 0 and 8 * warp < sl:
+                    p0 = (lane >> 3) == 0
+                    np.add.at(ncov, z * sl + 8 * warp + (lane & 7)[p0], 1)
+    assert (out == 1).all()
+    assert (ccov == 1).all() and (ncov == 1).all()
+
+
+@pytest.mark.parametrize("B,S,H,m,c", ML_BIG)
+def test_mlstm_backward_row_blocks_fit_and_cover_once(B, S, H, m, c):
+    """The backward above 128: the grads kernel's row blocks of 128 keep a
+    chunk of 128's tiles (and shared memory); over a chunk's blocks every
+    (token, column) of dq, dk and dv is written once, each token's two
+    shares once, and dC : C_in by row block 0 alone."""
+    plan = ML.backward_plan(B, S, H, m, c)
+    for key in ("state_smem", "scores_smem", "grads_smem"):
+        assert plan[key] <= SMEM_LIMIT, key
+    cp, ct, nrb = plan["cp"], plan["col_tiles"], plan["row_blocks"]
+    assert nrb == 2 and plan["row_tiles"] == 8 and plan["nt"] == 8
+    assert plan["grads_grid"] == ((S // c) * nrb * ct, B * H)
+    assert plan["grads_smem"] == ML.backward_plan(1, 128, 1, m, 128)[
+        "grads_smem"]
+    g, t4 = _lanes()
+    out = np.zeros((c, m), np.int64)
+    parts = np.zeros((ct, 2 * c + 1), np.int64)
+    for pt in range(ct):
+        a0 = pt * ML.BWD_COLS
+        for rb in range(nrb):
+            rb0 = rb * ML.ROW_BLOCK
+            nrt = min(cp - rb0, ML.ROW_BLOCK) // 16
+            for w in range(nrt):  # tasks: one row tile a warp, 64 columns
+                for nt in range(8):
+                    for h in range(2):
+                        t = rb0 + 16 * w + g + 8 * h
+                        a = a0 + 8 * nt + 2 * t4
+                        for d in range(2):
+                            ok = (t < c) & (a + d < m)
+                            np.add.at(out, (t[ok], a[ok] + d), 1)
+            rows = rb0 + np.arange(min(cp, ML.ROW_BLOCK))
+            rows = rows[rows < c]
+            parts[pt, rows] += 1
+            parts[pt, c + rows] += 1
+            parts[pt, 2 * c] += rb == 0
+    assert (out == 1).all() and (parts == 1).all()

@@ -91,6 +91,30 @@ def test_flash_attention_plain_matches_dense_oracle(B, S, Hq, Hkv, d, bq, bk,
     np.testing.assert_allclose(as_np(got), as_np(want), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("d", [32, 96, 256])
+def test_flash_attention_any_head_width_matches_pallas(d, dtype):
+    """Head widths the kernel runs at a padded compiled width (32 at 64,
+    96 at 128, 256 at its own): the port against the reference's Pallas
+    kernel in interpret mode at (1, 256, 2, d), causal, the softmax
+    scale that of the true d."""
+    q, k, v = flash_inputs(d, 1, 256, 2, 2, d)
+    (jq, tq), (jk, tk), (jv, tv) = (both(x, dtype) for x in (q, k, v))
+    want = jflash.flash_attention(jq, jk, jv, block_q=128, block_k=128)
+    got = tflash.flash_attention(tq, tk, tv, block_q=128, block_k=128)
+    assert got.dtype == tq.dtype and got.shape == (1, 256, 2, d)
+    tol = 2e-2 if dtype == "bf16" else 2e-4
+    np.testing.assert_allclose(as_np(got), as_np(want), rtol=tol, atol=tol)
+
+
+def test_flash_attention_padded_widths():
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+
+    assert [FA.padded_width(d) for d in (1, 32, 64, 65, 80, 96, 128, 129,
+                                         192, 193, 256)] == [
+        64, 64, 64, 128, 128, 128, 128, 192, 192, 256, 256]
+
+
 def test_flash_attention_non_causal_matches_pallas():
     q, k, v = flash_inputs(7, 1, 128, 2, 2, 64)
     (jq, tq), (jk, tk), (jv, tv) = (both(x) for x in (q, k, v))
@@ -235,6 +259,21 @@ def test_mlstm_plain_matches_sequential_oracle(B, S, H, m, chunk):
                                atol=2e-3)
 
 
+@pytest.mark.parametrize("B,S,H,m", [(1, 512, 1, 32), (1, 256, 2, 64)])
+def test_mlstm_plain_matches_pallas_at_chunk_256(B, S, H, m):
+    """The reference's ``rec_chunk`` of 256, which the kernel takes in
+    row blocks of 128: the port's chunkwise recurrence at chunk 256
+    against the reference's Pallas kernel in interpret mode, at
+    tests/test_kernels.py's tolerance."""
+    ins = mlstm_inputs(S + m + 256, B, S, H, m)
+    want = jmlstm.mlstm_chunkwise(*ins, chunk=256)
+    got = tmlstm.mlstm_chunkwise(*(torch.from_numpy(x) for x in ins),
+                                 chunk=256)
+    assert got.shape == (B, S, H, m) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-3,
+                               atol=2e-3)
+
+
 def test_mlstm_chunk_variants_agree_but_not_bit_identical():
     """The reference marks ``chunk`` not bit-identical
     (``Tunable(bit_identical=False)``): chunk sizes change the order of
@@ -266,10 +305,9 @@ def test_flash_attention_rejects():
         tflash.flash_attention(q, k.to(torch.bfloat16), v)
     with pytest.raises(ValueError, match="multiple of"):
         tflash.flash_attention(q[:, :, :3].contiguous(), k, v)
+    wide = [torch.zeros(*t.shape[:3], 257) for t in (q, k, v)]
     with pytest.raises(ValueError, match="head width"):
-        tflash.flash_attention(q[..., :32].contiguous(),
-                               k[..., :32].contiguous(),
-                               v[..., :32].contiguous())
+        tflash.flash_attention(*wide)
     with pytest.raises(ValueError, match="contiguous"):
         tflash.flash_attention(q.transpose(1, 2), k, v)
     with pytest.raises(ValueError, match="block_q"):
@@ -288,9 +326,9 @@ def test_mlstm_rejects():
     with pytest.raises(ValueError, match="shape"):
         tmlstm.mlstm_chunkwise(*ts[:3], ts[3][:, :, :1].contiguous(), ts[4],
                                chunk=32)
-    z, g = torch.zeros(1, 256, 1, 8), torch.zeros(1, 256, 1)
-    with pytest.raises(ValueError, match="larger than 128"):
-        tmlstm.mlstm_chunkwise(z, z, z, g, g, chunk=256)
+    z, g = torch.zeros(1, 512, 1, 8), torch.zeros(1, 512, 1)
+    with pytest.raises(ValueError, match="larger than 256"):
+        tmlstm.mlstm_chunkwise(z, z, z, g, g, chunk=512)
     with pytest.raises(ValueError, match="no kernel for device meta"):
         tmlstm.mlstm_chunkwise(*[t.to("meta") for t in ts], chunk=32)
 
