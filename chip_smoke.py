@@ -165,7 +165,14 @@ Phases, each of which raises (exit code 1) on a failed check:
    repro_torch.launch.roofline``: exit 0, every record's n_devices 256,
    FLOPs and memory per device > 0, algorithm bytes >= 0, a roofline row
    for each cell; each record's FLOPs, memory, collective bytes by op and
-   row printed; (b) ``launch.train`` (its ``main``, in this process) on
+   row printed; beside them ``python -m repro_torch.launch.dryrun
+   --held``, the one-group probes of the eight cells whose JAX records
+   ``src/repro_torch/launch/dryrun_reference.json`` holds, each within
+   ``dryrun.BOUNDS`` of its record (``against_reference``: FLOPs a
+   device, collective bytes, ``per_device_total``, and in decode the
+   bytes accessed and the caches written in place) on this machine's
+   torch, one line a cell with its four ratios and ``torch.__version__``;
+   (b) ``launch.train`` (its ``main``, in this process) on
    recurrentgemma-2b at full width and depth, 1 x 4096, 2 steps, without
    and with ``--distributed`` (NCCL, a world of one from the environment
    the phase sets): the losses and grad norms of both steps equal bit for
@@ -3988,15 +3995,20 @@ def phase_process_backend(dev, out_dir: Path, smi: str):
 # ------------------------------------------ 16. sharding and launch tools
 #: the dry-run's cells: the reference test's, and a dense training cell
 DRYRUN_CELLS = (("xlstm-350m", "decode_32k"), ("llama3-8b", "train_4k"))
+#: the label of the dry-run of the cells held to the JAX package's
+#: records (``--held``), which exits 1 when one misses a bound: the misses
+#: are named from its records (:func:`_held_results`)
+HELD = ("held", "p1")
 DRYRUN_WAIT_S = 900  # the longest the wait for the dry-runs may take
 LAUNCH_TRAIN = dict(arch="recurrentgemma_2b", batch=1, seq=4096, steps=2)
 
 
 def start_dryruns(out_dir: Path, log_dir: Path):
     """The dry-run CLI on each of DRYRUN_CELLS (single-pod, with its
-    probes), one subprocess a cell, all started together; none sees the
-    card, and any still running when the script exits is killed.
-    Returns [(cell, Popen, log path)]."""
+    probes), one subprocess a cell, and on the held cells (``--held``,
+    one subprocess, records beside ``out_dir`` in ``<name>_held``), all
+    started together; none sees the card, and any still running when
+    the script exits is killed.  Returns [(cell, Popen, log path)]."""
     import atexit
     import shutil
 
@@ -4005,17 +4017,25 @@ def start_dryruns(out_dir: Path, log_dir: Path):
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
            "CUDA_VISIBLE_DEVICES": ""}
     procs = []
-    for arch, shape in DRYRUN_CELLS:
-        path = log_dir / f"{arch}__{shape}.log"
+    commands = [((arch, shape), ["--arch", arch, "--shape", shape,
+                                 "--mesh", "single", "--probes", "--out",
+                                 str(out_dir), "--no-skip-existing"])
+                for arch, shape in DRYRUN_CELLS]
+    shutil.rmtree(_held_dir(out_dir), ignore_errors=True)
+    commands.append((HELD, ["--held", "--out", str(_held_dir(out_dir))]))
+    for cell, argv in commands:
+        path = log_dir / f"{cell[0]}__{cell[1]}.log"
         with open(path, "w") as f:
-            procs.append(((arch, shape), subprocess.Popen(
-                [sys.executable, "-m", "repro_torch.launch.dryrun",
-                 "--arch", arch, "--shape", shape, "--mesh", "single",
-                 "--probes", "--out", str(out_dir), "--no-skip-existing"],
+            procs.append((cell, subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun"] + argv,
                 cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT),
                 path))
     atexit.register(stop_dryruns, procs)
     return procs
+
+
+def _held_dir(out_dir: Path) -> Path:
+    return out_dir.parent / (out_dir.name + "_held")
 
 
 def stop_dryruns(procs) -> None:
@@ -4035,7 +4055,7 @@ def wait_dryruns(procs) -> float:
         except subprocess.TimeoutExpired:
             raise AssertionError(f"the dry-run of {arch} {shape} ran past "
                                  f"{DRYRUN_WAIT_S} s") from None
-        if rc != 0:
+        if rc != 0 and not ((arch, shape) == HELD and rc == 1):
             raise AssertionError(f"the dry-run of {arch} {shape} exited "
                                  f"{rc}: {path.read_text()[-2000:]}")
     return time.perf_counter() - t0
@@ -4087,6 +4107,31 @@ def _dryrun_results(out_dir: Path):
     for r in rows:
         log(f"[sharding] roofline (computed, 256 ranks, H100 constants) {r}")
     return records, rows
+
+
+def _held_results(held_dir: Path):
+    """Each held cell's record against the JAX package's
+    (``dryrun.against_reference``): one line a cell with its four ratios
+    and this machine's torch; raises naming every bound a cell misses."""
+    from repro_torch.launch import dryrun
+
+    held, misses = {}, []
+    for name, ref in dryrun.reference_records().items():
+        rec = json.loads((held_dir / f"{name}.json").read_text())
+        if "error" in rec:
+            raise AssertionError(f"dry-run {name}: {rec['error']}")
+        held[name] = {"ratios": dryrun.ratios(rec, ref),
+                      "misses": dryrun.against_reference(rec, ref),
+                      "alias_size_in_bytes":
+                          rec["memory"]["alias_size_in_bytes"],
+                      "torch": torch.__version__}
+        misses += [f"{name}: {m}" for m in held[name]["misses"]]
+        log(f"[sharding] held {name} (computed, 256 ranks) "
+            + json.dumps(held[name]))
+    if misses:
+        raise AssertionError("dry-run cells outside the bounds of the JAX "
+                             "package's records: " + "; ".join(misses))
+    return held
 
 
 def _launch_train(dev, out_dir: Path, distributed: bool):
@@ -4214,7 +4259,9 @@ def phase_sharding(dev, smi: str, recurrent, moe_audio, rec_train):
     log("[sharding] launch.train " + json.dumps(launcher))
     mfu = _mfu_lines(smi, recurrent, moe_audio, rec_train)
     dryrun, roofline = _dryrun_results(ROOT / "build" / "dryrun")
+    held = _held_results(_held_dir(ROOT / "build" / "dryrun"))
     return ({"launcher": launcher, "mfu": mfu, "dryrun": dryrun,
+             "held": held,
              "roofline": roofline},
             {"forward": plain["forward_launches"] + dist["forward_launches"],
              "backward": (plain["backward_launches"]

@@ -39,6 +39,10 @@ __all__ = [
     "shard",
     "shard_if_divisible",
     "placements",
+    "local_shards",
+    "from_local",
+    "all_reduce",
+    "mesh_coordinate",
     "resolve_spec",
     "resolve_spec_tree",
     "SINGLE_POD_RULES",
@@ -267,3 +271,82 @@ def resolve_spec_tree(tree, rules: AxisRules, shapes=None):
             rules.mesh,
             resolve_spec(p, rules, None if s is None else tuple(s.shape))),
         tree, shapes)
+
+
+# ---------------------------------------------------------------------------
+# work on each rank's shards
+# ---------------------------------------------------------------------------
+
+
+def _is_dtensor(x) -> bool:
+    if not hasattr(x, "device_mesh"):
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def local_shards(*xs, partial=()):
+    """Each DTensor's local shard (a plain tensor is its own), for code
+    that runs on each rank's shards: the gradient of a local shard flows
+    back to its DTensor.  ``partial`` names mesh dims on which an input
+    replicated there is put to a different use on each rank (its keys,
+    its tokens): each rank's gradient is then a part of the input's, and
+    the backward sums them."""
+    out = []
+    for x in xs:
+        if not _is_dtensor(x):
+            out.append(x)
+            continue
+        grad = None
+        if partial:
+            from torch.distributed.tensor import Partial
+
+            grad = [Partial() if i in partial and p.is_replicate() else p
+                    for i, p in enumerate(x.placements)]
+        out.append(x.to_local(grad_placements=grad))
+    return tuple(out)
+
+
+def from_local(local, mesh, placements, shape):
+    """A DTensor of global ``shape`` from each rank's contiguous
+    ``local`` shard laid out by ``placements`` (differentiable)."""
+    import math
+
+    from torch.distributed.tensor import DTensor
+
+    shape = tuple(shape)
+    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+    return DTensor.from_local(local, mesh, tuple(placements),
+                              run_check=False, shape=shape, stride=stride)
+
+
+def all_reduce(local, mesh, mesh_dims, op: str = "sum", *,
+               per_rank_use: bool = False):
+    """``local`` reduced (``"sum"`` or ``"max"``) over the ranks of
+    ``mesh_dims``, every one of them left with the result: a DTensor
+    redistribution, so the dry-run records the all-reduce.  The gradient
+    of a sum reaches every rank whole: as it comes, where every rank puts
+    the result to the same use, or summed over the ranks where each puts
+    it to a use of its own (``per_rank_use``: each rank's gradient is then
+    a part)."""
+    if not mesh_dims:
+        return local
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    part = [Partial(op) if i in mesh_dims else Replicate()
+            for i in range(mesh.ndim)]
+    d = DTensor.from_local(local, mesh, part, run_check=False)
+    grad = [Partial() if per_rank_use and i in mesh_dims else Replicate()
+            for i in range(mesh.ndim)]
+    return d.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=grad)
+
+
+def mesh_coordinate(mesh, mesh_dims) -> int:
+    """This rank's index among the shards of a tensor dim sharded over
+    ``mesh_dims`` (in mesh order, the first one major)."""
+    idx = 0
+    for i in mesh_dims:
+        idx = idx * mesh.shape[i] + mesh.get_local_rank(i)
+    return idx

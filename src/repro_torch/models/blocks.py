@@ -15,7 +15,10 @@ block is a namespace of functions
 ``mode`` ∈ {"train", "prefill", "decode"}; ``pos`` is (B,) — the
 position being generated in decode.  Train mode is prefill without the
 cache (``new_cache`` None).  Caches are returned as new tensors (the
-reference threads functional arrays); nothing is updated in place here.
+reference threads functional arrays), unless a decode step is given
+``extras={"donate": True}``: then it writes the caches it was given in
+place and returns them, as the reference's jit does with donated
+caches (:func:`donated`).
 """
 
 from __future__ import annotations
@@ -25,7 +28,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import P, current_rules, shard
+from repro_torch.distributed.sharding import (P, current_rules, from_local,
+                                             local_shards, mesh_coordinate,
+                                             shard)
 
 from . import layers as L
 
@@ -83,16 +88,67 @@ def build_prefill_cache(cfg, k, v, max_len):
     return {"k": kc, "v": vc}
 
 
-def _cache_write_token(cfg, cache, k_new, v_new, pos):
+def _cache_write_token(cfg, cache, k_new, v_new, pos, *, donate=False):
     """Write one token at pos (B,) — rolling ring buffer if windowed.  A
     scatter along the sequence (each row's own slot), which keeps a
-    cache sharded on its batch and head dims local to each shard."""
+    cache sharded on its batch and head dims local to each shard.  With
+    ``donate`` the token is written into the caches given, which are
+    returned (the reference's donated caches); on a mesh each rank
+    writes its own shard (:func:`_write_token_on_shards`)."""
     pos = pos.long()
     slot = pos % cache["k"].shape[1] if cfg.window > 0 else pos
+    if donate:
+        for name, new in (("k", k_new), ("v", v_new)):
+            _write_token(cache[name], new, slot)
+        return {"k": cache["k"], "v": cache["v"]}
     idx = slot.view(-1, 1, 1, 1).expand(k_new.shape)
     k = cache["k"].scatter(1, idx, k_new.to(cache["k"].dtype))
     v = cache["v"].scatter(1, idx, v_new.to(cache["v"].dtype))
     return {"k": k, "v": v}
+
+
+def _write_token(cache, new, slot):
+    """``cache[b, slot[b]] = new[b, 0]`` in place, for every row b."""
+    if not hasattr(cache, "device_mesh"):
+        idx = slot.view(-1, 1, 1, 1).expand(new.shape)
+        cache.scatter_(1, idx, new.to(cache.dtype))
+        return
+    _write_token_on_shards(cache, new, slot)
+
+
+def _write_token_on_shards(cache, new, slot):
+    """:func:`_write_token` on a DTensor cache, each rank on its shard:
+    the token and the slots are laid out as the cache's batch and heads;
+    where the cache's sequence is sharded, a rank writes the rows whose
+    slot lies in its shard and writes the others' own values back."""
+    from torch.distributed.tensor import Replicate
+
+    mesh = cache.device_mesh
+    seq = [i for i, p in enumerate(cache.placements)
+           if p.is_shard() and p.dim == 1]
+    want = [Replicate() if i in seq else p
+            for i, p in enumerate(cache.placements)]
+    new = new.to(cache.dtype)
+    if list(new.placements) != want:
+        new = new.redistribute(mesh, want)
+    slot_want = [p if p.is_shard() and p.dim == 0 else Replicate()
+                 for p in cache.placements]
+    if list(slot.placements) != slot_want:
+        slot = slot.redistribute(mesh, slot_want)
+    cl, nl, sl = local_shards(cache, new, slot)
+    T = cl.shape[1]
+    sl = sl - mesh_coordinate(mesh, seq) * T
+    idx = torch.clamp(sl, 0, T - 1).view(-1, 1, 1, 1).expand(nl.shape)
+    if seq:
+        mine = ((sl >= 0) & (sl < T)).view(-1, 1, 1, 1)
+        nl = torch.where(mine, nl, torch.gather(cl, 1, idx))
+    cl.scatter_(1, idx, nl)
+
+
+def donated(extras) -> bool:
+    """Whether a decode step writes its caches in place
+    (``extras["donate"]``, :meth:`~repro_torch.models.model_api.Model.decode_step`)."""
+    return bool(extras and extras.get("donate"))
 
 
 def _check_mode(block: str, mode: str) -> None:
@@ -121,7 +177,8 @@ def _self_attention(cfg, params, h, *, mode, cache, pos, extras,
     of ``extras["max_len"]``; train builds none and returns ``cache``."""
     if mode == "decode":
         q, k, v = L._project_qkv(cfg, params, h, pos[:, None], rope)
-        cache = _cache_write_token(cfg, cache, k, v, pos)
+        cache = _cache_write_token(cfg, cache, k, v, pos,
+                                   donate=donated(extras))
         return _decode_self_attention(cfg, q, cache, pos), cache
     S = h.shape[1]
     positions = torch.arange(S, device=h.device)[None, :]
@@ -311,7 +368,8 @@ class CrossLayer:
                                      rope=False)
             cache = dict(cache)
             cache.update(_cache_write_token(
-                cfg, {"k": cache["k"], "v": cache["v"]}, k, v, pos))
+                cfg, {"k": cache["k"], "v": cache["v"]}, k, v, pos,
+                donate=donated(extras)))
             attn = L.decode_attention(cfg, q, cache["k"], cache["v"],
                                       pos + 1)
         else:
@@ -400,18 +458,42 @@ def moe_apply(cfg, params, x, *, return_routing: bool = False):
     token's K contributions are summed in ascending expert order (the
     reference's scatter-add order), one add at a time.
 
+    On a mesh each rank runs its own groups (:func:`_moe_on_shards`).
+
     ``return_routing`` also returns ``{"experts", "weights", "keep"}``,
     each (B·S, K) in top-k order, and ``"capacity"`` (per group)."""
     B, S, D = x.shape
     N = B * S
-    K, E = cfg.top_k, cfg.n_experts
     G = _moe_groups(N)
     T = N // G
     capacity = moe_capacity(cfg, T)
-    dt = x.dtype
-    dev = x.device
-
     xg = shard(x.reshape(G, T, D), "batch", None, None)
+    if hasattr(xg, "device_mesh"):
+        if return_routing:
+            raise ValueError("return_routing needs plain tensors")
+        return _moe_on_shards(cfg, params, xg, capacity).reshape(B, S, D)
+    out, routing = _moe_groups_apply(cfg, params, xg, capacity,
+                                     routing=return_routing)
+    out = out.reshape(B, S, D)
+    if not return_routing:
+        return out
+    return out, routing
+
+
+def _moe_groups_apply(cfg, params, xg, capacity, experts=None, *,
+                      routing=False):
+    """:func:`moe_apply` on the groups ``xg`` (G, T, D), plain tensors:
+    (the output (G, T, D), the routing if ``routing`` else None).
+    ``experts``, on a mesh whose rules shard the experts, is ``(split,
+    gather)``: ``params`` hold this rank's experts, ``split`` takes their
+    rows of the buffers (G, E, C, D), and ``gather`` makes their outputs
+    every expert's."""
+    G, T, D = xg.shape
+    N = G * T
+    K, E = cfg.top_k, cfg.n_experts
+    dt = xg.dtype
+    dev = xg.device
+
     probs = torch.softmax((xg @ params["router"].to(dt)).float(), dim=-1)
     # top-k with ties to the lower expert index, as jax.lax.top_k
     vals, eidx = torch.sort(probs, dim=-1, descending=True, stable=True)
@@ -439,6 +521,9 @@ def moe_apply(cfg, params, x, *, return_routing: bool = False):
         1, slot[..., None].expand(G, T * K, D), x_sorted)
     buf = buf[:, :n_slots].reshape(G, E, capacity, D)  # empty slots stay 0
     buf = shard(buf, "batch", "experts", None, None)
+    if experts is not None:
+        split, gather = experts
+        buf = split(buf)
 
     h = F.silu(torch.einsum("gecd,edf->gecf", buf,
                             params["w_gate"].to(dt))) * torch.einsum(
@@ -446,6 +531,8 @@ def moe_apply(cfg, params, x, *, return_routing: bool = False):
     h = shard(h, "batch", "experts", None, None)
     y = torch.einsum("gecf,efd->gecd", h, params["w_out"].to(dt))
     y = shard(y, "batch", "experts", None, None)
+    if experts is not None:
+        y = gather(y)
 
     # combine: each kept entry reads its slot, weighted; dropped read 0
     y_sorted = _rows(torch.cat([y.reshape(G, n_slots, D),
@@ -459,12 +546,59 @@ def moe_apply(cfg, params, x, *, return_routing: bool = False):
     out = y_tok[:, :, 0]
     for k in range(1, K):
         out = out + y_tok[:, :, k]
-    out = shard(out, "batch", None, None).reshape(B, S, D)
-    if not return_routing:
-        return out
-    return out, {"experts": eidx.reshape(N, K), "weights": vals.reshape(N, K),
+    out = shard(out, "batch", None, None)
+    if not routing:
+        return out, None
+    return out, {"experts": eidx.reshape(N, K),
+                 "weights": vals.reshape(N, K),
                  "keep": torch.gather(keep, 1, inv).view(N, K),
                  "capacity": capacity}
+
+
+def _moe_on_shards(cfg, params, xg, capacity):
+    """:func:`moe_apply` on a mesh, as the reference's ``shard`` points
+    lay it out: each rank dispatches, computes and combines its own
+    groups (``xg``'s batch shards) locally, with the router and the
+    experts' weights gathered from their fsdp shards in the compute
+    dtype (GSPMD's FSDP all-gather; their gradients are summed back over
+    the groups' ranks).
+    Where the rules shard the experts (a count the model axis divides),
+    each rank computes its experts' products and the outputs are
+    gathered over those ranks before the combine; where they drop it
+    (granite's 40 on 16) every rank of the model axis computes all of
+    them, as the reference does."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, dt = xg.device_mesh, xg.dtype
+    groups = [i for i, p in enumerate(xg.placements) if p.is_shard()]
+    # gathered in the compute dtype, in which every use reads them
+    local = {"router": params["router"].to(dt).redistribute(
+        mesh, [Replicate()] * mesh.ndim)}
+    for name in ("w_gate", "w_in", "w_out"):
+        local[name] = shard(params[name].to(dt), "experts", None, None)
+    e_dims = [i for i, p in enumerate(local["w_gate"].placements)
+              if p.is_shard()]
+    local = dict(zip(local, local_shards(*local.values(), partial=groups)))
+    (xl,) = local_shards(xg)
+    experts = None
+    if e_dims:
+        whole = [Shard(0) if i in groups else Replicate()
+                 for i in range(mesh.ndim)]
+        split = [Shard(1) if i in e_dims else p for i, p in enumerate(whole)]
+        n_groups = xg.shape[0]
+
+        def relaid(t, src, dst):
+            # the gradient comes back relaid the other way (a rank's
+            # experts' rows of the buffers' gradient gathered, the
+            # outputs' gradient cut to a rank's experts)
+            shape = (n_groups, cfg.n_experts) + tuple(t.shape[2:])
+            return from_local(t, mesh, src, shape).redistribute(
+                mesh, dst).to_local()
+
+        experts = (lambda buf: relaid(buf, whole, split),
+                   lambda y: relaid(y, split, whole))
+    out, _ = _moe_groups_apply(cfg, local, xl, capacity, experts)
+    return from_local(out, mesh, xg.placements, xg.shape)
 
 
 class MoELayer:

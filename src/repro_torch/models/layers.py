@@ -17,6 +17,11 @@ Conventions (the JAX package's, ``src/repro/models/layers.py``)
   sequence-sharded layout over the model axis.  ``shard(...)`` marks
   where the reference constrains a layout.  Without a mesh (one device)
   the factor is 1 and every ``shard`` returns its input.
+* On a mesh (DTensors), attention runs on each rank's shards, as GSPMD
+  partitions the reference's einsums: on its heads, or, for sequence-
+  sharded keys, on its keys with the softmax's max and sums and P·V
+  reduced over the model axis (:func:`_attention_on_shards`).  The
+  one-device code path is untouched by it.
 """
 
 from __future__ import annotations
@@ -31,7 +36,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.sharding import P, current_rules, shard
+from repro_torch.distributed.sharding import (P, all_reduce, current_rules,
+                                             from_local, local_shards,
+                                             mesh_coordinate, shard)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -276,11 +283,21 @@ def _chunk_attend(q_c, k, v, q_pos, k_pos, window: int):
 
 def full_attention(cfg, q, k, v, *, pos0: int = 0):
     """Causal (optionally windowed) attention over a full sequence, row-
-    chunked over queries. q: (B,S,Hq,hd) → (B,S,Hq*hd)."""
-    dims = attn_dims(cfg)
-    B, S = q.shape[:2]
+    chunked over queries. q: (B,S,Hq,hd) → (B,S,Hq*hd).  On a mesh it
+    runs on each rank's shards (:func:`_attention_on_shards`)."""
+    shards = _attention_on_shards(q, k, v)
+    if shards is not None:
+        return _full_attention_on_shards(cfg, *shards, pos0=pos0)
+    return _full_attention(cfg, q, k, v, pos0)
+
+
+def _full_attention(cfg, q, k, v, pos0):
+    """:func:`full_attention` on plain tensors, whose head counts are
+    read from the shapes (a rank's shards hold some of the heads)."""
+    B, S, n_q, hd = q.shape
+    n_kv = k.shape[2]
     C = divisor_chunk(S, cfg.q_chunk)
-    qg = q.reshape(B, S, dims.n_kv, dims.group, dims.head_dim)
+    qg = q.reshape(B, S, n_kv, n_q // n_kv, hd)
     dev = q.device
     win = cfg.window
     outs = []
@@ -298,14 +315,19 @@ def full_attention(cfg, q, k, v, *, pos0: int = 0):
             k_pos = pos0 + torch.arange(S, device=dev)
             outs.append(_chunk_attend(q_c, k, v, q_pos, k_pos, win))
     out = torch.cat(outs, dim=1)
-    return out.reshape(B, S, dims.n_q * dims.head_dim)
+    return out.reshape(B, S, n_q * hd)
 
 
 def decode_attention(cfg, q, k_cache, v_cache, kv_len, *, apply_window=True):
     """Single-token attention. q: (B,1,Hq,hd); caches (B,Smax,Hkv,hd);
     kv_len: (B,) valid lengths (new token already written).
     ``apply_window=False`` for ring-buffer caches whose slots are already
-    window-resident."""
+    window-resident.  On a mesh it runs on each rank's shards
+    (:func:`_attention_on_shards`)."""
+    window = cfg.window if apply_window else 0
+    shards = _attention_on_shards(q, k_cache, v_cache)
+    if shards is not None:
+        return _decode_attention_on_shards(*shards, kv_len, window)
     dims = attn_dims(cfg)
     B = q.shape[0]
     Smax = k_cache.shape[1]
@@ -316,14 +338,138 @@ def decode_attention(cfg, q, k_cache, v_cache, kv_len, *, apply_window=True):
     t = torch.arange(Smax, device=q.device)
     kv_len = kv_len.to(q.device)
     mask = t[None, :] < kv_len[:, None]  # (B,Smax)
-    if cfg.window > 0 and apply_window:
-        mask &= t[None, :] >= kv_len[:, None] - cfg.window
+    if window > 0:
+        mask &= t[None, :] >= kv_len[:, None] - window
     scores = torch.where(mask[:, None, None, None, :], scores,
                          torch.full_like(scores, -1e30))
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgct,btkd->bckgd", probs.to(q.dtype).float(),
                        v_cache.float()).to(q.dtype)
     return out.reshape(B, 1, dims.n_q * dims.head_dim)
+
+
+# ---------------------------------------------------------------------------
+# attention on a mesh: each rank on its shards
+# ---------------------------------------------------------------------------
+
+
+def _attention_on_shards(q, k, v):
+    """None for plain tensors.  For DTensors: ``(mesh, q, k, v, seq)``,
+    the three laid out so that each rank attends on its own shards, as
+    GSPMD partitions the reference's einsums and softmax.  Per mesh dim,
+    q, k and v share k's layout of the batch (dim 0) and heads (dim 2),
+    which keeps a rank's query heads with their KV heads; where k's
+    sequence (dim 1) is sharded (a KV head count the model axis does not
+    divide), q is whole there and ``seq`` names those mesh dims: each
+    rank scores its keys, and a max and sums over them combine the ranks'
+    softmax and products."""
+    if not hasattr(k, "device_mesh"):
+        return None
+    from torch.distributed.tensor import Replicate
+
+    mesh = k.device_mesh
+    kv_want, q_want, seq = [], [], []
+    for i, p in enumerate(k.placements):
+        if p.is_shard() and p.dim == 1:
+            seq.append(i)
+            kv_want.append(p)
+            q_want.append(Replicate())
+        elif p.is_shard() and p.dim in (0, 2):
+            kv_want.append(p)
+            q_want.append(p)
+        else:
+            kv_want.append(Replicate())
+            q_want.append(Replicate())
+
+    def fit(x, want):
+        return (x if list(x.placements) == want
+                else x.redistribute(mesh, want))
+
+    return mesh, fit(q, q_want), fit(k, kv_want), fit(v, kv_want), seq
+
+
+def _reduce_over(mesh, seq):
+    """An all-reduce over the sequence's mesh dims (:func:`all_reduce`)."""
+    return lambda t, op="sum", per_rank_use=False: all_reduce(
+        t, mesh, seq, op, per_rank_use=per_rank_use)
+
+
+def _softmax_over_shards(scores, reduce):
+    """softmax over the last dim of scores whose last dim lies in shards
+    across ranks: a max and a sum over the ranks (each rank divides its
+    own scores by the sum)."""
+    m = reduce(torch.amax(scores, dim=-1, keepdim=True).detach(), "max")
+    e = torch.exp(scores - m)
+    return e / reduce(torch.sum(e, dim=-1, keepdim=True), per_rank_use=True)
+
+
+def _full_attention_on_shards(cfg, mesh, q, k, v, seq, *, pos0):
+    """:func:`full_attention` on each rank's shards; with the keys in
+    shards (``seq``), each query chunk scores this rank's keys at their
+    global positions, and the probabilities' max, sums and P·V are
+    reduced over the ranks."""
+    B, S, n_q, hd = q.shape
+    ql, kl, vl = local_shards(q, k, v, partial=seq)
+    if not seq:
+        out = _full_attention(cfg, ql, kl, vl, pos0)
+    else:
+        reduce = _reduce_over(mesh, seq)
+        Bl, _, Hl, _ = ql.shape
+        T = kl.shape[1]
+        k_pos = pos0 + mesh_coordinate(mesh, seq) * T + torch.arange(
+            T, device=ql.device)
+        n_kv = kl.shape[2]
+        C = divisor_chunk(S, cfg.q_chunk)
+        qg = ql.reshape(Bl, S, n_kv, Hl // n_kv, hd)
+        scale = 1.0 / math.sqrt(hd)
+        outs = []
+        for i in range(S // C):
+            q_c = qg[:, i * C:(i + 1) * C]
+            q_pos = pos0 + i * C + torch.arange(C, device=ql.device)
+            scores = torch.einsum("bckgd,btkd->bkgct", q_c.float(),
+                                  kl.float()) * scale
+            mask = k_pos[None, :] <= q_pos[:, None]
+            if cfg.window > 0:
+                mask &= k_pos[None, :] > q_pos[:, None] - cfg.window
+            scores = torch.where(mask[None, None, None], scores,
+                                 torch.full_like(scores, -1e30))
+            probs = _softmax_over_shards(scores, reduce)
+            o = torch.einsum("bkgct,btkd->bckgd",
+                             probs.to(q_c.dtype).float(), vl.float())
+            outs.append(reduce(o).to(q_c.dtype))
+        out = torch.cat(outs, dim=1).reshape(Bl, S, Hl * hd)
+    return from_local(out, mesh, q.placements, (B, S, n_q * hd))
+
+
+def _decode_attention_on_shards(mesh, q, k, v, seq, kv_len, window):
+    """:func:`decode_attention` on each rank's shards.  Each cache row is
+    widened to float32 on its own (no float32 copy of a whole cache);
+    with the keys in shards (``seq``), the probabilities' max, sums and
+    P·V are reduced over the ranks."""
+    B, _, n_q, hd = q.shape
+    ql, kl, vl = local_shards(q, k, v)
+    Bl, _, Hl, _ = ql.shape
+    T, n_kv = kl.shape[1], kl.shape[2]
+    reduce = _reduce_over(mesh, seq)
+    qg = ql.reshape(Bl, 1, n_kv, Hl // n_kv, hd).float()
+    scale = 1.0 / math.sqrt(hd)
+    scores = torch.cat([
+        torch.einsum("bckgd,btkd->bkgct", qg[b:b + 1],
+                     kl[b:b + 1].float()) for b in range(Bl)]) * scale
+    t = mesh_coordinate(mesh, seq) * T + torch.arange(T, device=ql.device)
+    (kv_len,) = local_shards(kv_len)
+    kv_len = kv_len.to(ql.device)
+    mask = t[None, :] < kv_len[:, None]  # (Bl, T)
+    if window > 0:
+        mask &= t[None, :] >= kv_len[:, None] - window
+    scores = torch.where(mask[:, None, None, None, :], scores,
+                         torch.full_like(scores, -1e30))
+    probs = _softmax_over_shards(scores, reduce).to(ql.dtype)
+    out = torch.cat([
+        torch.einsum("bkgct,btkd->bckgd", probs[b:b + 1].float(),
+                     vl[b:b + 1].float()) for b in range(Bl)])
+    out = reduce(out).to(ql.dtype).reshape(Bl, 1, Hl * hd)
+    return from_local(out, mesh, q.placements, (B, 1, n_q * hd))
 
 
 # ---------------------------------------------------------------------------
@@ -415,12 +561,13 @@ def lm_logits(cfg, params, x):
     return shard(x @ w, "batch", "seq", "vocab")
 
 
-def xent_loss(cfg, params, hidden, labels, *, chunk: int = 512):
+def xent_loss(cfg, params, hidden, labels, *, chunk: int = 512,
+              remat: bool = True):
     """Sequence-chunked softmax cross-entropy in float32 (keeps (B,C,V)
     logits bounded).  hidden: (B,S,D); labels: (B,S) with -100 = ignore.
-    With more than one chunk and grad mode on, each chunk's logits are
-    recomputed in the backward pass rather than kept, as the reference's
-    ``jax.checkpoint(piece)``."""
+    With ``remat``, more than one chunk and grad mode on, each chunk's
+    logits are recomputed in the backward pass rather than kept, as the
+    reference's ``jax.checkpoint(piece)``."""
     B, S, _ = hidden.shape
     C = divisor_chunk(S, chunk)
     n = S // C
@@ -438,7 +585,7 @@ def xent_loss(cfg, params, hidden, labels, *, chunk: int = 512):
         valid = (y_c >= 0).float()
         return torch.sum((lse - gold) * valid), torch.sum(valid)
 
-    remat = n > 1 and torch.is_grad_enabled()
+    remat = remat and n > 1 and torch.is_grad_enabled()
     tot = cnt = 0.0
     for i in range(n):
         h_c, y_c = hidden[:, i * C:(i + 1) * C], labels[:, i * C:(i + 1) * C]

@@ -195,12 +195,17 @@ class Model:
             new_caches.append(nc)
         return L.norm_apply(self.cfg, params["final_norm"], x), new_caches
 
-    def loss(self, params, batch, *, remat: bool = True):
+    def loss(self, params, batch, *, remat: bool = True,
+             probe: bool = False):
         """Mean next-token cross-entropy of ``batch`` (``tokens``,
         ``labels`` (B, S) with -100 ignored; plus ``patch_embeds`` for
         the VLM family, whose loss covers the text positions only, or
         ``frames`` (B, enc_seq, d) for the audio family).  ``remat``
-        recomputes each layer's activations in the backward pass."""
+        recomputes each layer's activations in the backward pass.
+        ``probe`` (the dry-run's roofline probes) keeps every activation,
+        each layer's and each loss chunk's, as the reference's probes
+        run unrolled with no checkpoint."""
+        remat = remat and not probe
         cfg = self.cfg
         x = self._embed(params, batch)
         extras = None
@@ -212,7 +217,8 @@ class Model:
         labels = batch["labels"]
         if cfg.family == "vlm":  # loss only over text positions
             x = x[:, -labels.shape[1]:]
-        return L.xent_loss(cfg, params["embed"], x, labels)
+        return L.xent_loss(cfg, params["embed"], x, labels,
+                           remat=not probe)
 
     def prefill(self, params, batch, max_len: int):
         """Run the full prompt, returning (last-token logits, caches).
@@ -231,14 +237,21 @@ class Model:
         logits = L.lm_logits(cfg, params["embed"], x[:, -1:])
         return logits[:, 0], caches
 
-    def decode_step(self, params, caches, token, pos):
-        """token: (B,) int; pos: (B,) int positions being generated."""
+    def decode_step(self, params, caches, token, pos, *,
+                    donate: bool = False):
+        """token: (B,) int; pos: (B,) int positions being generated.
+        ``donate`` writes the new token's keys and values, and the
+        recurrent states, into ``caches`` in place and returns them (the
+        reference's serve step donates its caches); otherwise the caches
+        given are left as they were."""
         cfg = self.cfg
         x = L.embed_tokens(
             cfg, params["embed"], token[:, None],
             pos[:, None] if cfg.pos_embed == "learned" else None)
         x, caches = self._backbone(params, x, mode="decode", caches=caches,
-                                   pos=pos, extras=None)
+                                   pos=pos,
+                                   extras={"donate": True} if donate
+                                   else None)
         logits = L.lm_logits(cfg, params["embed"], x)
         return logits[:, 0], caches
 

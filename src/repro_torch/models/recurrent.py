@@ -49,6 +49,7 @@ from repro_torch.kernels.mlstm import ops as mlstm_ops
 from repro_torch.kernels.rg_lru import ops as rg_lru_ops
 
 from . import layers as L
+from .blocks import donated
 
 # ---------------------------------------------------------------------------
 # shared helpers
@@ -190,10 +191,17 @@ class MLSTMLayer:
                 cfg, params, xm, cache["conv"])
             q = q / math.sqrt(m)  # in the compute dtype, as the reference
             q1, k1, v1 = (t[:, 0].float() for t in (q, k, v))
+            # laid out as the cache's columns (GSPMD propagates C's)
+            v1 = shard(v1, "batch", None, "ff")
             i1, f1 = i[:, 0], torch.exp(lf[:, 0])  # (B,H)
-            C = cache["C"] * f1[..., None, None] + (
-                i1[..., None, None] * k1[..., :, None] * v1[..., None, :])
-            nv = cache["n"] * f1[..., None] + i1[..., None] * k1
+            kv = i1[..., None, None] * k1[..., :, None] * v1[..., None, :]
+            if donated(extras):
+                C = cache["C"].mul_(f1[..., None, None]).add_(kv)
+                nv = cache["n"].mul_(f1[..., None]).add_(i1[..., None] * k1)
+                new_buf = cache["conv"].copy_(new_buf)
+            else:
+                C = cache["C"] * f1[..., None, None] + kv
+                nv = cache["n"] * f1[..., None] + i1[..., None] * k1
             num = torch.einsum("zha,zhae->zhe", q1, C)
             den = torch.clamp_min(
                 torch.abs(torch.einsum("zha,zha->zh", q1, nv)), 1.0)
@@ -283,9 +291,9 @@ class SLSTMLayer:
 
     @staticmethod
     def init_cache(cfg, batch, max_len, device=None):
-        z = torch.zeros((batch, cfg.d_model), dtype=torch.float32,
-                        device=device)
-        return {"c": z, "h": z, "n": z}
+        # three tensors of their own: a donated decode step writes each
+        return {k: torch.zeros((batch, cfg.d_model), dtype=torch.float32,
+                               device=device) for k in ("c", "h", "n")}
 
     @staticmethod
     def _recurrence(cfg, params):
@@ -343,6 +351,8 @@ class SLSTMLayer:
         h_seq = torch.stack(hs).permute(2, 0, 1, 3).reshape(B, S, D).to(dt)
         state = {k: v.transpose(0, 1).reshape(B, D)
                  for k, v in (("c", c), ("h", h), ("n", n))}
+        if mode == "decode" and donated(extras):
+            state = {k: cache[k].copy_(v) for k, v in state.items()}
         h_seq = L.rms_norm(h_seq, params["out_scale"])
         up = h_seq @ params["w_up"].to(dt)
         gate, val = up[..., :f], up[..., f:]
@@ -440,7 +450,11 @@ class RGLRULayer:
         if mode == "decode":
             a, b, new_buf = RGLRULayer._scan_inputs(cfg, params, hin,
                                                     cache["conv"])
-            h_new = a[:, 0] * cache["h"] + b[:, 0]  # (B,D)
+            if donated(extras):
+                h_new = cache["h"].mul_(a[:, 0]).add_(b[:, 0])
+                new_buf = cache["conv"].copy_(new_buf)
+            else:
+                h_new = a[:, 0] * cache["h"] + b[:, 0]  # (B,D)
             hs = h_new[:, None]
         elif mode in ("prefill", "train"):
             a, b, new_buf = RGLRULayer._scan_inputs(cfg, params, hin, None)

@@ -17,11 +17,13 @@ __all__ = ["build_train_step", "build_serve_step", "build_prefill_step"]
 
 
 def build_train_step(model: Model, opt_cfg: AdamWConfig = AdamWConfig(),
-                     *, remat: bool = True, microbatches: int = 1):
+                     *, remat: bool = True, probe: bool = False,
+                     microbatches: int = 1):
     """fwd+bwd+AdamW.  ``microbatches > 1`` accumulates float32 gradients
     over ``microbatches`` equal slices of the batch (rows in order) and
     divides by their number: the same tokens per step, 1/k of the
-    activation memory.
+    activation memory.  ``probe`` is the dry-run's roofline probe
+    (:meth:`Model.loss`: nothing recomputed, as the reference's).
 
     ``train_step(params, opt_state, batch)`` → (params, opt_state,
     metrics); params and moments are rewritten in place, ``metrics``
@@ -31,7 +33,13 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig = AdamWConfig(),
         if p.grad is None:  # a leaf the loss does not reach
             return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
         # the sum over microbatches, divided in place (no second copy)
-        return p.grad.div_(microbatches) if microbatches > 1 else p.grad
+        g = p.grad.div_(microbatches) if microbatches > 1 else p.grad
+        if hasattr(g, "device_mesh") and g.placements != p.placements:
+            # a sharded parameter's gradient in the parameter's layout
+            # (pending sums reduce-scattered, as an FSDP step does), so
+            # the update runs on each rank's shard
+            g = g.redistribute(p.device_mesh, p.placements)
+        return g
 
     def grads_of(params, batch):
         flat = leaves(params)
@@ -40,7 +48,7 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig = AdamWConfig(),
             p.grad = None
         try:
             if microbatches == 1:
-                loss = model.loss(params, batch, remat=remat)
+                loss = model.loss(params, batch, remat=remat, probe=probe)
                 loss.backward()
                 loss = loss.detach()
             else:
@@ -49,7 +57,8 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig = AdamWConfig(),
                 for i in range(k):
                     part = {n: a.reshape(k, a.shape[0] // k, *a.shape[1:])[i]
                             for n, a in batch.items()}
-                    l = model.loss(params, part, remat=remat)
+                    l = model.loss(params, part, remat=remat,
+                                   probe=probe)
                     l.backward()  # sums into each leaf's float32 .grad
                     loss = loss + l.detach()
                 loss = loss / k
@@ -74,11 +83,13 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig = AdamWConfig(),
 
 
 def build_serve_step(model: Model):
-    """One decode step: greedy next token + updated caches."""
+    """One decode step: greedy next token + the caches it was given,
+    written in place (the reference's serve step donates them)."""
 
     @torch.no_grad()  # not inference_mode: DTensors refuse it
     def serve_step(params, caches, token, pos):
-        logits, caches = model.decode_step(params, caches, token, pos)
+        logits, caches = model.decode_step(params, caches, token, pos,
+                                           donate=True)
         return torch.argmax(logits, dim=-1).to(torch.int32), caches
 
     return serve_step
