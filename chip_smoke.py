@@ -166,12 +166,15 @@ Phases, each of which raises (exit code 1) on a failed check:
    FLOPs and memory per device > 0, algorithm bytes >= 0, a roofline row
    for each cell; each record's FLOPs, memory, collective bytes by op and
    row printed; beside them ``python -m repro_torch.launch.dryrun
-   --held``, the one-group probes of the eight cells whose JAX records
-   ``src/repro_torch/launch/dryrun_reference.json`` holds, each within
+   --held --jobs 6``, the one-group probes of the 64 cells whose JAX
+   records ``src/repro_torch/launch/dryrun_reference.json`` holds (every
+   arch's shapes on the 16 x 16 and the 2 x 16 x 16 mesh), each within
    ``dryrun.BOUNDS`` of its record (``against_reference``: FLOPs a
    device, collective bytes, ``per_device_total``, and in decode the
-   bytes accessed and the caches written in place) on this machine's
-   torch, one line a cell with its four ratios and ``torch.__version__``;
+   bytes accessed and the caches written in place; the sLSTM's scan
+   counted once where the reference's record holds it as a while loop)
+   on this machine's torch, one line a cell with its four ratios and
+   ``torch.__version__``;
    (b) ``launch.train`` (its ``main``, in this process) on
    recurrentgemma-2b at full width and depth, 1 x 4096, 2 steps, without
    and with ``--distributed`` (NCCL, a world of one from the environment
@@ -3999,6 +4002,9 @@ DRYRUN_CELLS = (("xlstm-350m", "decode_32k"), ("llama3-8b", "train_4k"))
 #: records (``--held``), which exits 1 when one misses a bound: the misses
 #: are named from its records (:func:`_held_results`)
 HELD = ("held", "p1")
+#: the held cells' dry-runs at once (one process a cell): with the script
+#: and the two other dry-runs, about the card host's 8 cores
+HELD_JOBS = 6
 DRYRUN_WAIT_S = 900  # the longest the wait for the dry-runs may take
 LAUNCH_TRAIN = dict(arch="recurrentgemma_2b", batch=1, seq=4096, steps=2)
 
@@ -4006,7 +4012,8 @@ LAUNCH_TRAIN = dict(arch="recurrentgemma_2b", batch=1, seq=4096, steps=2)
 def start_dryruns(out_dir: Path, log_dir: Path):
     """The dry-run CLI on each of DRYRUN_CELLS (single-pod, with its
     probes), one subprocess a cell, and on the held cells (``--held``,
-    one subprocess, records beside ``out_dir`` in ``<name>_held``), all
+    HELD_JOBS subprocesses at a time, records beside ``out_dir`` in
+    ``<name>_held``), all
     started together; none sees the card, and any still running when
     the script exits is killed.  Returns [(cell, Popen, log path)]."""
     import atexit
@@ -4022,14 +4029,17 @@ def start_dryruns(out_dir: Path, log_dir: Path):
                                  str(out_dir), "--no-skip-existing"])
                 for arch, shape in DRYRUN_CELLS]
     shutil.rmtree(_held_dir(out_dir), ignore_errors=True)
-    commands.append((HELD, ["--held", "--out", str(_held_dir(out_dir))]))
+    commands.append((HELD, ["--held", "--jobs", str(HELD_JOBS), "--out",
+                            str(_held_dir(out_dir))]))
     for cell, argv in commands:
         path = log_dir / f"{cell[0]}__{cell[1]}.log"
         with open(path, "w") as f:
+            # a session of its own: stop_dryruns ends the held run's
+            # processes of a cell with it
             procs.append((cell, subprocess.Popen(
                 [sys.executable, "-m", "repro_torch.launch.dryrun"] + argv,
-                cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT),
-                path))
+                cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT,
+                start_new_session=True), path))
     atexit.register(stop_dryruns, procs)
     return procs
 
@@ -4039,10 +4049,14 @@ def _held_dir(out_dir: Path) -> Path:
 
 
 def stop_dryruns(procs) -> None:
+    import signal
+
     for _, proc, _ in procs:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+        try:  # each dry-run's process group, its children too
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
 
 
 def wait_dryruns(procs) -> float:
@@ -4126,7 +4140,7 @@ def _held_results(held_dir: Path):
                           rec["memory"]["alias_size_in_bytes"],
                       "torch": torch.__version__}
         misses += [f"{name}: {m}" for m in held[name]["misses"]]
-        log(f"[sharding] held {name} (computed, 256 ranks) "
+        log(f"[sharding] held {name} (computed, {rec['n_devices']} ranks) "
             + json.dumps(held[name]))
     if misses:
         raise AssertionError("dry-run cells outside the bounds of the JAX "

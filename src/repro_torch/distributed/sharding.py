@@ -308,6 +308,17 @@ def local_shards(*xs, partial=()):
     return tuple(out)
 
 
+def gathered_numel(x, placements, mesh_dims) -> float:
+    """The elements of a DTensor's shard, laid out by ``placements``, once
+    made whole on ``mesh_dims``: where two operands' shards clash on those
+    dims, GSPMD gathers the one for which this is the smaller."""
+    import math
+
+    sizes = x.device_mesh.shape
+    return x.numel() / math.prod(sizes[d] for d, p in enumerate(placements)
+                                 if p.is_shard() and d not in mesh_dims)
+
+
 def from_local(local, mesh, placements, shape):
     """A DTensor of global ``shape`` from each rank's contiguous
     ``local`` shard laid out by ``placements`` (differentiable)."""

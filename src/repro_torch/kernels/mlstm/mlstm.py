@@ -264,21 +264,23 @@ def mlstm_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     batch, s, h, m = q.shape
     bh = batch * h
 
-    def heads(x):  # (B, S, H, m) -> (BH, S, m)
-        return x.transpose(1, 2).reshape(bh, s, m)
+    def heads(x, sl):  # (B, S, H, ...) -> (BH, c, ...), one chunk's
+        x = x[:, sl].transpose(1, 2)
+        return x.reshape((bh,) + tuple(x.shape[2:]))
 
-    qh, kh, vh = heads(q / math.sqrt(m)), heads(k), heads(v)
-    ih = i_gate.transpose(1, 2).reshape(bh, s)
-    fh = log_f.transpose(1, 2).reshape(bh, s)
     c_state = torch.zeros((bh, m, m), dtype=q.dtype, device=q.device)
     n_state = torch.zeros((bh, m, 1), dtype=q.dtype, device=q.device)
     mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                  device=q.device))
-    outs, c_ins, n_ins, dens = [], [], [], []
+    # h in q's layout, each chunk written into it (a chunk at a time, so
+    # nothing of the whole sequence is held twice)
+    hs = torch.empty_like(q)
+    c_ins, n_ins, dens = [], [], []
     for t0 in range(0, s, chunk):
         sl = slice(t0, t0 + chunk)
-        qc, kc, vc, ic = qh[:, sl], kh[:, sl], vh[:, sl], ih[:, sl]
-        cum = torch.cumsum(fh[:, sl], dim=-1)                    # (BH, c)
+        qc, kc, vc = heads(q, sl) / math.sqrt(m), heads(k, sl), heads(v, sl)
+        ic = heads(i_gate, sl)
+        cum = torch.cumsum(heads(log_f, sl), dim=-1)            # (BH, c)
         scores = qc @ kc.transpose(-1, -2)
         # the decay masked before its exp: above the diagonal cum_t - cum_s
         # is positive and, over a long chunk, overflows, and autograd of a
@@ -289,7 +291,8 @@ def mlstm_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ecum = torch.exp(cum)[..., None]
         num = a @ vc + ecum * (qc @ c_state)
         den = a.sum(dim=-1, keepdim=True) + ecum * (qc @ n_state)
-        outs.append(num / den.abs().clamp_min(1.0))
+        hs[:, sl].copy_((num / den.abs().clamp_min(1.0)).reshape(
+            batch, h, chunk, m).transpose(1, 2))
         if save:
             c_ins.append(c_state)
             n_ins.append(n_state[..., 0])
@@ -298,8 +301,8 @@ def mlstm_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         decay = torch.exp(cum[:, -1])[:, None, None]
         c_state = decay * c_state + kw.transpose(-1, -2) @ vc
         n_state = decay * n_state + kw.sum(dim=1)[..., None]
-    hs = torch.cat(outs, dim=1) if outs else qh
-    hs = hs.reshape(batch, h, s, m).transpose(1, 2).contiguous()
+    if not s:
+        hs = q.contiguous()
     out = (hs,)
     if return_state:
         out += (c_state.reshape(batch, h, m, m), n_state.reshape(batch, h, m))

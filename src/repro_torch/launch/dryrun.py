@@ -11,13 +11,15 @@ once, eagerly.  Nothing is allocated on any device.  Per cell it records:
   * ``cost.flops``: FLOPs per device — the local ops rank 0 runs on its
     shards, matmul-class ops by ``torch.utils.flop_counter``'s formulas
     (FlopCounterMode's table), every other pointwise op one FLOP per
-    output element (transcendental ones under ``cost.transcendentals``),
-    as XLA's cost analysis counts them.  Counting the local ops is the
+    output element (transcendental ones under ``cost.transcendentals``;
+    a copy none), as XLA's cost analysis counts them.  Counting the local ops is the
     rule "global FLOPs divided by the product of the mesh dims on which
     the op's output is Shard or Partial" (an op replicated on a dim runs
     on every rank of it);
   * ``cost.bytes_accessed`` (computed): each counted op's input and
-    output bytes, views excluded;
+    output bytes, views excluded; a gather by index tensors (the
+    embedding's lookup) its output's bytes twice and its indices', as
+    XLA counts a gather;
   * ``memory.per_device_total``: the peak of live local bytes on rank 0
     (inputs included) under eager execution — XLA's figure is arguments
     + temps + outputs − aliases under its own schedule; the serve step
@@ -33,10 +35,15 @@ DTensor, not GSPMD, decides where to redistribute, so ``by_op`` and
 ``counts`` differ from the reference's for the same cell; what is equal
 is the input: placements resolved from the same logical specs.  The
 model lays out what GSPMD partitions by propagation where DTensor would
-not: attention runs on each rank's head or sequence shards
-(:mod:`repro_torch.models.layers`), the MoE dispatch on each rank's
-groups, a decode step's cache writes on each rank's cache shard
-(:mod:`repro_torch.models.blocks`).  Where DTensor's own choice differs
+not: attention runs on each rank's head or sequence shards, a windowed
+chunk on the keys of its span alone, and the loss's chunks on each
+rank's sequence shard (:mod:`repro_torch.models.layers`); the MoE
+dispatch on each rank's groups, a decode step's cache writes on each
+rank's cache shard, cross attention's queries split over ranks that
+would each do all of them (:mod:`repro_torch.models.blocks`); the
+recurrent blocks' wide products by column shards and the mLSTM's chunks
+on each rank's batch (:mod:`repro_torch.models.recurrent`).  Where
+DTensor's own choice differs
 from GSPMD's, :class:`_GspmdLike` reshards first (its docstring lists
 each case), so torch 2.11 and 2.13 give the same plan.  On a CPU process
 group DTensor does an all-to-all as all-gather + chunk.
@@ -45,22 +52,34 @@ Roofline probes (``--probe 1|2``) run the model with 1 or 2 layer
 groups, and a training probe recomputes nothing (no remat), as the
 reference's; the roofline tool extrapolates ``c1 + (G_eff - 1)·(c2 -
 c1)``.
-The port runs every layer and every sLSTM step, so its counts are
-complete and the extrapolation equals the full cell's count for a model
-of identical groups; the probes are kept so both packages build their
-tables the same way.
+The port runs every layer, so its counts are complete and the
+extrapolation equals the full cell's count for a model of identical
+groups; the probes are kept so both packages build their tables the same
+way.  The sLSTM's loop over time (:func:`repro_torch.models.recurrent.
+time_loop`, forward and, in training, backward) runs its first two
+steps, and the second's count is added for every other step
+(:class:`_OneStep`): every step runs the same ops on the same shapes and
+layouts, so the record's count is the whole loop's.  ``rec["loops"]``
+holds each loop's step count and one step's figures.
 
 Held to the reference: at one group (``--probe 1``) the reference
-compiles no while loop, so its records count every op; the cells of
-``dryrun_reference.json`` (the reference CLI's records, written by
-``tests/make_dryrun_reference.py``) are held to :data:`BOUNDS` of them
-by :func:`against_reference`, and the CLI prints a cell's four ratios
-whenever a record of it is there.
+unrolls its layers, so its records count every op but those of its
+while loops (``n_while_loops``: the sLSTM's ``lax.scan``, forward and in
+training backward), whose body XLA's cost analysis and the collective
+parser count once.  The cells of ``dryrun_reference.json`` (the
+reference CLI's records of every cell on both meshes, written by
+``tests/make_dryrun_reference.py``) are held to :data:`BOUNDS` of them by
+:func:`against_reference`.  Against a record with while loops, the
+port's FLOPs, collective bytes and bytes accessed are taken with each
+loop's steps out but one (:func:`loop_body_once`: the body once, as XLA
+counts it); against one without, its complete count.  The memory is the
+eager peak against XLA's either way.  The CLI prints a cell's four
+ratios whenever a record of it is there.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch llama3-8b --shape train_4k --mesh single
   python -m repro_torch.launch.dryrun --sweep [--probes] [--skip-existing]
-  python -m repro_torch.launch.dryrun --held   # the held cells, exit 1 on a miss
+  python -m repro_torch.launch.dryrun --held [--jobs N]   # the held cells, exit 1 on a miss
 """
 
 from __future__ import annotations
@@ -69,6 +88,7 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import time
 import traceback
 import weakref
@@ -79,10 +99,11 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
 from repro_torch.configs.base import ARCH_IDS, SHAPES, cells_for, get_config
-from repro_torch.distributed.sharding import use_rules
+from repro_torch.distributed.sharding import gathered_numel, use_rules
 from repro_torch.launch.hlo_analysis import collective_event, collective_stats
 from repro_torch.launch.mesh import make_production_mesh, rules_for_mesh
 from repro_torch.launch.specs import input_shardings, input_specs
+from repro_torch.models import recurrent
 from repro_torch.models.model_api import build_model, stack_plan
 from repro_torch.train.step import (build_prefill_step, build_serve_step,
                                     build_train_step)
@@ -120,6 +141,10 @@ _ARG_REDUCTIONS = {aten.argmax.default, aten.argmin.default}
 #: ops that move no data (a view that aten does not mark as one); with
 #: the ``prim`` namespace's metadata queries (``prim.device``), no bytes
 _NO_DATA = {aten._unsafe_view.default}
+#: copies: bytes, and no FLOP, as XLA counts a copy
+_COPIES = {aten.clone.default, aten.copy_.default, aten.copy.default}
+#: gathers of rows by an index tensor (the embedding's lookup)
+_GATHERS = {aten.index.Tensor, aten.embedding.default}
 #: elementwise ops DTensor has no strategy for: run on the local shards,
 #: every operand of the first's shape laid out as the first
 _LOCAL_ELEMENTWISE = {aten.log_sigmoid_backward.default}
@@ -242,7 +267,7 @@ def _fit_for_view(view, x, shape):
                 want[i] = Replicate()
     if want == list(x.placements):
         return x
-    return x.redistribute(x.device_mesh, want)
+    return _relaid(x, want)
 
 
 def _relaid(x, placements):
@@ -265,8 +290,8 @@ def _reduced(x):
     if not isinstance(x, DTensor) or not any(p.is_partial()
                                              for p in x.placements):
         return x
-    return x.redistribute(x.device_mesh, [Replicate() if p.is_partial()
-                                          else p for p in x.placements])
+    return _relaid(x, [Replicate() if p.is_partial() else p
+                       for p in x.placements])
 
 
 def _pointwise_reduced(args):
@@ -313,7 +338,56 @@ def _gathered(x, dim):
             and (d is None or p.dim == d) else p for p in x.placements]
     if want == list(x.placements):
         return x
-    return x.redistribute(x.device_mesh, want)
+    return _relaid(x, want)
+
+
+def _argmax_on_shards(x, dim):
+    """``argmax`` over a dim that lies in even shards across ranks: each
+    rank's max and its first index there, then a max of the values and,
+    among the ranks that hold it, the least global index (two all-reduces
+    of the output's size), as GSPMD partitions the reference's.  None
+    where the dim is not sharded or its shards are uneven."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.distributed.sharding import (all_reduce, from_local,
+                                                  mesh_coordinate)
+
+    if dim is None:
+        return None
+    d = dim % x.dim()
+    mesh = x.device_mesh
+    over = [i for i, p in enumerate(x.placements)
+            if p.is_shard() and p.dim == d]
+    if (not over or any(p.is_partial() for p in x.placements)
+            or x.shape[d] % math.prod(mesh.shape[i] for i in over)):
+        return None
+    xl = x.to_local()
+    v, idx = torch.max(xl, dim=d)
+    idx = idx + mesh_coordinate(mesh, over) * xl.shape[d]
+    top = all_reduce(v, mesh, over, "max")
+    neg = torch.where(v == top, -idx, torch.full_like(idx, -x.shape[d]))
+    out = -all_reduce(neg, mesh, over, "max")
+    placements = [Replicate() if i in over or not p.is_shard()
+                  else Shard(p.dim - (p.dim > d))
+                  for i, p in enumerate(x.placements)]
+    shape = [n for i, n in enumerate(x.shape) if i != d]
+    return from_local(out, mesh, placements, shape)
+
+
+def _flip_on_shards(x, dims):
+    """``flip`` of dims that lie whole on every rank, on the local shards
+    (torch 2.11's DTensor has no strategy for it; the mLSTM's plain
+    backward flips each chunk's positions).  None where a flipped dim is
+    sharded or ``x`` holds a pending sum."""
+    from torch.distributed.tensor import DTensor
+
+    dims = [d % x.dim() for d in dims]
+    if any(p.is_partial() or getattr(p, "dim", None) in dims
+           for p in x.placements):
+        return None
+    return DTensor.from_local(torch.flip(x._local_tensor, dims),
+                              x.device_mesh, x.placements, run_check=False,
+                              shape=x.shape, stride=x.stride())
 
 
 def _index_accumulate(func, args, kwargs):
@@ -381,9 +455,10 @@ def _paired(a, b, batched: bool) -> bool:
 def _fsdp_gathered(func, args):
     """A product's args with, on every mesh dim where both matrices are
     sharded along dims that do not pair (an activation's rows and an
-    FSDP weight's contraction), the smaller one whole on that dim, as
-    GSPMD resolves such a clash: a training step's weight, a decode
-    step's few tokens.  DTensor may rather reshard the larger one."""
+    FSDP weight's contraction), the one whose gathered shard is the
+    smaller whole on that dim, as GSPMD resolves such a clash: a training
+    step's weight (its other dims still sharded), a decode step's few
+    tokens.  DTensor may rather reshard the larger one."""
     from torch.distributed.tensor import DTensor, Replicate
 
     i, j = _MATRICES[func]
@@ -394,13 +469,16 @@ def _fsdp_gathered(func, args):
         # gathering the broadcast view would move a copy per product)
         return args
     batched = a.dim() == 3
-    small = i if a.numel() < b.numel() else j
-    want = list(args[small].placements)
-    for d, (pa, pb) in enumerate(zip(a.placements, b.placements)):
-        if pa.is_shard() and pb.is_shard() and not _paired(pa, pb, batched):
-            want[d] = Replicate()
-    if want == list(args[small].placements):
+    clash = [d for d, (pa, pb) in enumerate(zip(a.placements, b.placements))
+             if pa.is_shard() and pb.is_shard()
+             and not _paired(pa, pb, batched)]
+    if not clash:
         return args
+
+    small = i if (gathered_numel(a, a.placements, clash)
+                  < gathered_numel(b, b.placements, clash)) else j
+    want = [Replicate() if d in clash else p
+            for d, p in enumerate(args[small].placements)]
     args = list(args)
     args[small] = _relaid(args[small], want)
     return tuple(args)
@@ -524,6 +602,89 @@ def _logsumexp_on_shards(x, dims, keepdim):
     return from_local(out, mesh, placements, shape)
 
 
+def _strided(placements) -> bool:
+    """Whether a placement is a strided shard (a dim merged behind a
+    sharded one: batch and sequence into a product's rows)."""
+    return any(type(p).__name__ == "_StridedShard" for p in placements)
+
+
+def _as_dim(p, dim):
+    """Placement ``p`` (a shard, plain or strided) moved to tensor dim
+    ``dim``."""
+    from torch.distributed.tensor import Shard
+
+    if _strided([p]):
+        return type(p)(dim, split_factor=p.split_factor)
+    return Shard(dim)
+
+
+def _strided_product(a, b):
+    """``mm(a, b)`` on each rank's shards where a matrix lies in strided
+    shards (a batch and a sequence merged: a product's rows or, in a
+    weight's gradient, its contraction).  Per mesh dim: where ``a``'s
+    rows and ``b``'s columns are both sharded, ``a`` is gathered (the
+    sequence gathered before a column-parallel product, as GSPMD does
+    under sequence parallelism); where ``b``'s rows are sharded against
+    ``a``'s rows, ``b`` (the weight) is gathered; where one matrix alone
+    has its contraction sharded, the other, whole there, takes that
+    layout (a slice), or else is gathered with it; a contraction sharded
+    alike on both leaves the output a pending sum.  DTensor reaches such
+    plans through a search of redistribution paths that takes ~0.5 s a
+    strategy on the two-pod mesh.  None where a matrix holds a pending
+    sum."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    if not (isinstance(a, DTensor) and isinstance(b, DTensor)
+            and a.device_mesh == b.device_mesh
+            and (_strided(a.placements) or _strided(b.placements))
+            and not any(p.is_partial()
+                        for p in a.placements + b.placements)):
+        return None
+
+    def dim(p):
+        return getattr(p, "dim", None)
+
+    wa, wb = list(a.placements), list(b.placements)
+    for d in range(len(wa)):
+        if dim(wa[d]) == 0 and dim(wb[d]) == 1:
+            wa[d] = Replicate()
+        elif dim(wa[d]) == 0 and dim(wb[d]) == 0:
+            wb[d] = Replicate()
+        elif dim(wa[d]) == 1 and dim(wb[d]) == 0 and wa[d] != _as_dim(
+                wb[d], 1):
+            wb[d] = Replicate()
+        if dim(wa[d]) == 1 and dim(wb[d]) != 0:
+            if wb[d].is_replicate():
+                wb[d] = _as_dim(wa[d], 0)
+            else:
+                wa[d] = Replicate()
+        elif dim(wb[d]) == 0 and dim(wa[d]) != 1:
+            if wa[d].is_replicate():
+                wa[d] = _as_dim(wb[d], 1)
+            else:
+                wb[d] = Replicate()
+    out = []
+    for pa, pb in zip(wa, wb):
+        if dim(pa) == 1 and dim(pb) == 0:
+            out.append(Partial())
+        elif dim(pa) == 0 and pb.is_replicate():
+            out.append(pa)
+        elif pa.is_replicate() and dim(pb) == 1:
+            out.append(pb)
+        elif pa.is_replicate() and pb.is_replicate():
+            out.append(Replicate())
+        else:
+            return None
+    if wa != list(a.placements):
+        a = _relaid(a, wa)
+    if wb != list(b.placements):
+        b = _relaid(b, wb)
+    local = torch.mm(a._local_tensor, b._local_tensor)
+    n, m = a.shape[0], b.shape[1]
+    return DTensor.from_local(local, a.device_mesh, out, run_check=False,
+                              shape=torch.Size((n, m)), stride=(m, 1))
+
+
 def _batch_only(placements) -> bool:
     """Every placement replicated or sharding dim 0 (plainly or strided)."""
     return all(p.is_replicate() or getattr(p, "dim", None) == 0
@@ -535,19 +696,29 @@ class _GspmdLike(TorchDispatchMode):
     DTensor's views the input layouts they accept (:func:`_fit_for_view`),
     forward and backward alike; reduces a product's pending sums first,
     and a pointwise op's but where it adds sums (:func:`_pointwise_reduced`);
-    settles a product's clash of layouts by gathering the smaller matrix
-    (:func:`_fsdp_gathered`) and spreads a weight's gradient over ranks
-    that would each compute all of it (:func:`_split_over_idle_ranks`);
-    looks the embedding up and takes ``logsumexp`` on each rank's shards
-    (:func:`_lookup_on_shards`, :func:`_logsumexp_on_shards`); gathers
-    an argmax's input (:func:`_gathered`), and runs the elementwise ops
-    DTensor lacks, and the embedding's backward
-    (:func:`_index_accumulate`), on the local shards.  A ``bmm`` of
+    settles a product's clash of layouts by gathering the matrix whose
+    gathered shard is the smaller (:func:`_fsdp_gathered`: an LM head's
+    weight, still sharded on the vocab, against a batch of activations)
+    and spreads a weight's gradient over ranks that would each compute
+    all of it (:func:`_split_over_idle_ranks`); looks the embedding up and
+    takes ``logsumexp`` and ``argmax`` on each rank's shards
+    (:func:`_lookup_on_shards`, :func:`_logsumexp_on_shards`,
+    :func:`_argmax_on_shards`: a max and the least index of it, where
+    DTensor would gather a decode step's logits); gathers another arg
+    reduction's input (:func:`_gathered`), and runs the elementwise ops
+    DTensor lacks, a ``flip`` of whole dims (:func:`_flip_on_shards`) and
+    the embedding's backward (:func:`_index_accumulate`), on the local
+    shards.  A ``bmm`` of
     two operands laid out alike on their batch dim alone (which attention
     meets where batch and heads, sharded on two mesh dims, merge into
     one strided dim) runs on the local shards at once: the product is
     batch-parallel, and DTensor's own strategy search over strided
-    layouts takes ~0.1 s a call."""
+    layouts takes ~0.1 s a call.  An ``mm`` of a matrix in strided shards
+    (batch and sequence merged under sequence parallelism, or cross
+    attention's queries split) is planned as GSPMD plans it and run on
+    the local shards (:func:`_strided_product`): DTensor's search takes
+    ~0.5 s a strategy there on the two-pod mesh.
+    """
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
@@ -562,12 +733,17 @@ class _GspmdLike(TorchDispatchMode):
         elif torch.Tag.pointwise in func.tags:
             args = _pointwise_reduced(args)
         if func in _ARG_REDUCTIONS and isinstance(args[0], DTensor):
-            args = (_gathered(args[0], args[1] if len(args) > 1
-                              else kwargs.get("dim")),) + tuple(args[1:])
+            dim = args[1] if len(args) > 1 else kwargs.get("dim")
+            keepdim = args[2] if len(args) > 2 else kwargs.get("keepdim")
+            if func is aten.argmax.default and not keepdim:
+                out = _argmax_on_shards(args[0], dim)
+                if out is not None:
+                    return out
+            args = (_gathered(args[0], dim),) + tuple(args[1:])
         if func in _LOCAL_ELEMENTWISE:
             first = _reduced(args[0])
             args = [a if not isinstance(a, DTensor) or a.shape != first.shape
-                    else a.redistribute(first.device_mesh, first.placements)
+                    else _relaid(a, first.placements)
                     for a in (first,) + tuple(args[1:])]
             local = func(*[a._local_tensor if isinstance(a, DTensor) else a
                            for a in args], **kwargs)
@@ -575,6 +751,10 @@ class _GspmdLike(TorchDispatchMode):
                                       first.placements, run_check=False,
                                       shape=first.shape,
                                       stride=first.stride())
+        if func is aten.flip.default and isinstance(args[0], DTensor):
+            out = _flip_on_shards(args[0], args[1])
+            if out is not None:
+                return out
         if func is aten.index_put.default:
             out = _index_accumulate(func, args, kwargs)
             if out is not None:
@@ -587,6 +767,10 @@ class _GspmdLike(TorchDispatchMode):
             out = _logsumexp_on_shards(
                 args[0], args[1], args[2] if len(args) > 2
                 else kwargs.get("keepdim", False))
+            if out is not None:
+                return out
+        if func is aten.mm.default and not kwargs:
+            out = _strided_product(*args)
             if out is not None:
                 return out
         if (func is aten.bmm.default and not kwargs
@@ -669,20 +853,62 @@ class _LocalCost(TorchDispatchMode):
             if packet in flop_registry:
                 self.flops += flop_registry[packet](*args, **kwargs,
                                                     out_val=out)
-            elif torch.Tag.pointwise in func.tags:
+            elif torch.Tag.pointwise in func.tags and func not in _COPIES:
                 n = sum(o.numel() for o in outs)
                 if packet in _TRANSCENDENTAL:
                     self.transcendentals += n
                 else:
                     self.flops += n
-            if not (func.is_view or func in _NO_DATA
-                    or func.namespace == "prim"):
+            if func in _GATHERS:
+                # as XLA counts a gather: a copy of the output's size and
+                # a read of the indices, not the whole table
+                self.bytes += sum(2 * o.numel() * o.element_size()
+                                  for o in outs) + sum(
+                    t.numel() * t.element_size() for t in ins[1:])
+            elif not (func.is_view or func in _NO_DATA
+                      or func.namespace == "prim"):
                 self.bytes += sum(t.numel() * t.element_size()
                                   for t in ins + outs)
         if not func.is_view:
             for o in outs:
                 self.hold(o)
         return out
+
+
+class _OneStep:
+    """The dry-run's :data:`repro_torch.models.recurrent.TIME_LOOP`: a time
+    loop runs its first two steps, which :class:`_LocalCost` counts, and
+    the second step's count is added ``steps - 2`` times more — FLOPs,
+    transcendentals, bytes and collectives.  From the second step on every
+    step runs the same ops on the same shapes and layouts (the first may
+    also lay out the loop's initial states), so the count is the whole
+    loop's; the peak of live bytes is a step's on top of what the loop
+    keeps (its buffers of the whole sequence are allocated before it).
+    ``loops`` holds each loop run's step count and one step's figures
+    (the second's)."""
+
+    def __init__(self, cost: "_LocalCost"):
+        self.cost = cost
+        self.loops = []
+
+    def __call__(self, steps: int, body) -> None:
+        c = self.cost
+        for i in range(min(steps, 2)):
+            f0, b0, t0 = c.flops, c.bytes, c.transcendentals
+            e0 = len(c.events)
+            body(i)
+        events = c.events[e0:]
+        step = {"flops": c.flops - f0, "bytes_accessed": c.bytes - b0,
+                "transcendentals": c.transcendentals - t0}
+        more = max(steps - 2, 0)
+        c.flops += more * step["flops"]
+        c.bytes += more * step["bytes_accessed"]
+        c.transcendentals += more * step["transcendentals"]
+        c.events += events * more
+        coll = collective_stats(events)
+        self.loops.append(dict(step, steps=steps,
+                               collective_bytes=coll.total_algorithm_bytes,
+                               by_op=coll.by_op))
 
 
 def _local_bytes(tree) -> dict:
@@ -747,8 +973,12 @@ def count_world1(arch_id: str, shape_name: str,
         inputs = [map_tree(fake, spec) for spec in input_specs(cfg, shape)]
         step, _ = _cell_step(model, arch_id, shape, probe_groups > 0, 1)
         cost = _LocalCost(fake_mode)
-        with cost:
-            step(*inputs)
+        recurrent.TIME_LOOP = _OneStep(cost)
+        try:
+            with cost:
+                step(*inputs)
+        finally:
+            recurrent.TIME_LOOP = None
     return {"flops": float(cost.flops),
             "transcendentals": float(cost.transcendentals),
             "bytes_accessed": float(cost.bytes)}
@@ -797,9 +1027,14 @@ def lower_cell(arch_id: str, shape_name: str, multi_pod: bool,
         for n in args_bytes.values():
             cost.live += n
         cost.peak = cost.live
+        one_step = _OneStep(cost)
         t1 = time.time()
-        with implicit_replication(), cost, _GspmdLike():
-            out = step(*inputs)
+        recurrent.TIME_LOOP = one_step
+        try:
+            with implicit_replication(), cost, _GspmdLike():
+                out = step(*inputs)
+        finally:
+            recurrent.TIME_LOOP = None
         rec["compile_s"] = round(time.time() - t1, 2)
 
     out_bytes = _local_bytes(out)
@@ -827,6 +1062,7 @@ def lower_cell(arch_id: str, shape_name: str, multi_pod: bool,
         "n_while_loops": coll.n_while_loops,
     }
     rec["collective_schedule"] = coll.schedule[:200]
+    rec["loops"] = one_step.loops
     rec["dropped_shardings"] = [
         f"{l}:{d}:{a}" for (l, d, a) in rules.dropped
     ][:40]
@@ -864,15 +1100,39 @@ def reference_records(path: Path = REFERENCE) -> dict:
     return json.loads(Path(path).read_text())["cells"]
 
 
+def loop_body_once(port_rec: dict, ref_rec: dict) -> dict:
+    """The port's FLOPs, collective bytes and bytes accessed as the
+    reference's record counts them: where the reference's step holds while
+    loops (``n_while_loops`` > 0: the sLSTM's scan over time, forward and
+    in training backward), XLA's cost analysis and the collective parser
+    count each loop's body once, so each of the port's loops
+    (``port_rec["loops"]``) is taken out but for one step; otherwise the
+    complete count."""
+    flops = port_rec["cost"]["flops"]
+    coll = port_rec["collectives"]["algorithm_bytes"]
+    nbytes = port_rec["cost"]["bytes_accessed"]
+    if ref_rec["collectives"]["n_while_loops"] > 0:
+        for loop in port_rec.get("loops", []):
+            k = loop["steps"] - 1
+            flops -= k * loop["flops"]
+            coll -= k * loop["collective_bytes"]
+            nbytes -= k * loop["bytes_accessed"]
+    return {"flops": flops, "collective_bytes": coll,
+            "bytes_accessed": nbytes}
+
+
 def ratios(port_rec: dict, ref_rec: dict) -> dict:
-    """The port's figures over the reference's, for each bound."""
+    """The port's figures over the reference's, for each bound: FLOPs,
+    collective bytes and bytes accessed counted as the reference's
+    (:func:`loop_body_once`), memory the eager peak against XLA's."""
+    port = loop_body_once(port_rec, ref_rec)
     return {
-        "flops": port_rec["cost"]["flops"] / ref_rec["cost"]["flops"],
-        "collective_bytes": (port_rec["collectives"]["algorithm_bytes"]
+        "flops": port["flops"] / ref_rec["cost"]["flops"],
+        "collective_bytes": (port["collective_bytes"]
                              / ref_rec["collectives"]["algorithm_bytes"]),
         "per_device_total": (port_rec["memory"]["per_device_total"]
                              / ref_rec["memory"]["per_device_total"]),
-        "bytes_accessed": (port_rec["cost"]["bytes_accessed"]
+        "bytes_accessed": (port["bytes_accessed"]
                            / ref_rec["cost"]["bytes_accessed"]),
     }
 
@@ -961,6 +1221,96 @@ def run_one(arch, shape, multi, probe, out_dir: Path, skip_existing=True,
     return rec
 
 
+def _parse_name(name: str):
+    """(arch, shape, multi, probe) of a record's :func:`cell_name`."""
+    arch, shape, mesh = name.split("__")[:3]
+    probe = next((int(p[1:]) for p in name.split("__")[3:]
+                  if p.startswith("p")), 0)
+    return arch, shape, mesh == "multi", probe
+
+
+def run_cells(names, out_dir: Path, jobs: int = 1, timeout=None,
+              module: str = "repro_torch.launch.dryrun", env=None):
+    """The dry-run CLI ``module`` (this one, or another taking its flags)
+    on each cell name of ``names``, on the mesh and probe the name gives:
+    one subprocess a cell, ``jobs`` at a time, each cell's output printed
+    as it ends.  Returns ({name: record}, {name: output}).  A record left
+    in ``out_dir`` by an earlier run is removed before its cell starts; a
+    cell whose process exits with another code than 0, or has not ended
+    ``timeout`` seconds after the first cell started, gets ``{"error":
+    ..., "exit": its code or None}``.  No process outlives the call."""
+    import subprocess
+    import sys
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = {**os.environ, **(env or {})}
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(Path(__file__).resolve().parents[2])]
+        + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    records, outputs = {}, {}
+    todo, running = list(names), []
+    t0 = time.monotonic()
+    try:
+        while todo or running:
+            while todo and len(running) < jobs:
+                name = todo.pop(0)
+                arch, shape, multi, probe = _parse_name(name)
+                (out_dir / f"{name}.json").unlink(missing_ok=True)
+                log = open(out_dir / f"{name}.log", "w")
+                running.append((name, log, subprocess.Popen(
+                    [sys.executable, "-m", module, "--arch", arch,
+                     "--shape", shape, "--mesh",
+                     "multi" if multi else "single", "--probe", str(probe),
+                     "--out", str(out_dir), "--no-skip-existing"],
+                    env=env, stdout=log, stderr=subprocess.STDOUT)))
+            late = timeout is not None and time.monotonic() - t0 > timeout
+            done = [r for r in running if late or r[2].poll() is not None]
+            if not done:
+                time.sleep(0.2)
+            for name, log, proc in done:
+                running.remove((name, log, proc))
+                cut = proc.poll() is None
+                if cut:
+                    proc.kill()
+                    proc.wait()
+                log.close()
+                outputs[name] = (out_dir / f"{name}.log").read_text()
+                print(outputs[name], end="", flush=True)
+                path = out_dir / f"{name}.json"
+                if cut or proc.returncode != 0 or not path.exists():
+                    records[name] = {
+                        "error": (f"past {timeout} s" if cut else
+                                  f"exit {proc.returncode}"),
+                        "exit": None if cut else proc.returncode}
+                else:
+                    records[name] = json.loads(path.read_text())
+            if late:
+                for name in todo:
+                    records[name] = {"error": f"past {timeout} s",
+                                     "exit": None}
+                todo = []
+    finally:  # a run stopped early leaves no cell running
+        for _, log, proc in running:
+            proc.kill()
+            proc.wait()
+            log.close()
+    return records, outputs
+
+
+def run_held(out_dir: Path, jobs: int = 1) -> int:
+    """The cells of the reference's records (``dryrun_reference.json``),
+    each on the mesh and probe its name gives, one subprocess a cell,
+    ``jobs`` at a time.  Prints each cell's line of ratios; 1 if a cell
+    fails or misses a bound, else 0."""
+    refs = reference_records()
+    records, _ = run_cells(list(refs), out_dir, max(jobs, 1))
+    misses = sum("error" in rec or bool(against_reference(rec, refs[name]))
+                 for name, rec in records.items())
+    print(f"[held] {len(refs) - misses} of {len(refs)} cells within "
+          f"bounds, torch {torch.__version__}", flush=True)
+    return 1 if misses else 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="all")
@@ -975,6 +1325,9 @@ def main(argv=None):
                     help="the one-group probes of the cells the reference's "
                          "records hold (dryrun_reference.json), each with "
                          "its ratios; exit 1 if one misses a bound")
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="with --held: cells run at once, one subprocess "
+                         "a cell")
     ap.add_argument("--out", default=str(OUT_DIR))
     ap.add_argument("--skip-existing", action="store_true", default=True)
     ap.add_argument("--no-skip-existing", dest="skip_existing",
@@ -984,16 +1337,7 @@ def main(argv=None):
 
     out_dir = Path(args.out)
     if args.held:
-        refs = reference_records()
-        misses = 0
-        for name, ref in refs.items():
-            arch, shape = name.split("__")[:2]
-            rec = run_one(arch, shape, False, 1, out_dir, False,
-                          rules_overrides=RULES_OVERRIDES.get(arch))
-            misses += "error" in rec or bool(against_reference(rec, ref))
-        print(f"[held] {len(refs) - misses} of {len(refs)} cells within "
-              f"bounds, torch {torch.__version__}", flush=True)
-        return 1 if misses else 0
+        return run_held(out_dir, args.jobs)
     archs = ARCH_IDS if args.arch == "all" else [args.arch.replace("-", "_")]
     meshes = {"single": [False], "multi": [True],
               "both": [False, True]}[args.mesh]

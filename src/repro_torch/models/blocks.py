@@ -237,19 +237,62 @@ class DenseLayer:
         return shard(x, "batch", "res_seq", "dmodel"), cache
 
 
-def _attend(q, k, v, dims):
+def _attend(q, k, v):
     """Unmasked GQA attention, a single-shot float32 softmax: q
     (B,S,Hq,hd), k, v (B,T,Hkv,hd) → (B,S,Hq*hd) in q's dtype; the
     probabilities are cast to the compute dtype before P·V, as the
-    reference casts them."""
-    B, S = q.shape[:2]
-    qg = q.reshape(B, S, dims.n_kv, dims.group, dims.head_dim)
-    scale = 1.0 / math.sqrt(dims.head_dim)
+    reference casts them.  On a mesh it runs on each rank's shards
+    (:func:`_attend_on_shards`)."""
+    shards = L._attention_on_shards(q, k, v)
+    if shards is not None:
+        return _attend_on_shards(*shards)
+    return _attend_local(q, k, v)
+
+
+def _attend_local(q, k, v, reduce=None):
+    """:func:`_attend` on plain tensors, its head counts read from the
+    shapes; with ``reduce`` (the keys in shards across ranks) the
+    softmax's max and sums and P·V are reduced over the ranks."""
+    B, S, n_q, hd = q.shape
+    n_kv = k.shape[2]
+    qg = q.reshape(B, S, n_kv, n_q // n_kv, hd)
+    scale = 1.0 / math.sqrt(hd)
     scores = torch.einsum("bckgd,btkd->bkgct", qg.float(), k.float()) * scale
-    probs = torch.softmax(scores, dim=-1)
+    probs = (torch.softmax(scores, dim=-1) if reduce is None
+             else L._softmax_over_shards(scores, reduce))
     out = torch.einsum("bkgct,btkd->bckgd", probs.to(q.dtype).float(),
-                       v.float()).to(q.dtype)
-    return out.reshape(B, S, dims.n_q * dims.head_dim)
+                       v.float())
+    if reduce is not None:
+        out = reduce(out)
+    return out.to(q.dtype).reshape(B, S, n_q * hd)
+
+
+def _attend_on_shards(mesh, q, k, v, seq):
+    """:func:`_attend` on each rank's (batch, head) shards.  With the keys
+    in shards (``seq``: a KV head count the model axis does not divide),
+    each rank scores its keys and the softmax's max, sums and P·V are
+    reduced over the ranks.  Otherwise, on the mesh dims where neither
+    batch nor heads are sharded, each rank takes its part of the queries,
+    where they divide, as GSPMD spreads the work that every rank of such a
+    dim would otherwise do whole."""
+    from torch.distributed.tensor import Shard
+
+    B, S, n_q, hd = q.shape
+    if seq:
+        ql, kl, vl = local_shards(q, k, v, partial=seq)
+        out = _attend_local(ql, kl, vl, L._reduce_over(mesh, seq))
+        return from_local(out, mesh, q.placements, (B, S, n_q * hd))
+    idle, n = [], 1
+    for i, p in enumerate(q.placements):
+        if p.is_replicate() and S % (n * mesh.shape[i]) == 0:
+            idle.append(i)
+            n *= mesh.shape[i]
+    if idle:
+        q = q.redistribute(mesh, [Shard(1) if i in idle else p
+                                  for i, p in enumerate(q.placements)])
+    ql, kl, vl = local_shards(q, k, v, partial=idle)
+    out = _attend_local(ql, kl, vl)
+    return from_local(out, mesh, q.placements, (B, S, n_q * hd))
 
 
 # ---------------------------------------------------------------------------
@@ -280,7 +323,7 @@ class EncoderLayer:
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         q, k, v = L._project_qkv(cfg, params["attn"], h, positions,
                                  rope=False)
-        attn = _attend(q, k, v, L.attn_dims(cfg))
+        attn = _attend(q, k, v)
         x = x + attn @ params["attn"]["wo"].to(x.dtype)
         h = L.norm_apply(cfg, params["norm2"], x)
         x = x + L.mlp_apply(cfg, params["mlp"], h)
@@ -389,8 +432,11 @@ class CrossLayer:
                 cache = dict(cache)
                 cache["xk"] = xk.to(L.cdtype(cfg))
                 cache["xv"] = xv.to(L.cdtype(cfg))
-        xa = _attend(q, xk, xv, dims)
-        x = x + xa @ params["xattn"]["wo"].to(dt)
+        xa = _attend(q, xk, xv)
+        # (on a mesh the queries may lie in shards of the sequence: the
+        # product is gathered into the residual's layout)
+        x = x + shard(xa @ params["xattn"]["wo"].to(dt), "batch", "res_seq",
+                      "dmodel")
         # -- MLP ----------------------------------------------------------------
         h = L.norm_apply(cfg, params["norm2"], x)
         x = x + L.mlp_apply(cfg, params["mlp"], h)

@@ -37,7 +37,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed.sharding import (P, all_reduce, current_rules,
-                                             from_local, local_shards,
+                                             from_local, gathered_numel,
+                                             local_shards,
                                              mesh_coordinate, shard)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -407,7 +408,10 @@ def _full_attention_on_shards(cfg, mesh, q, k, v, seq, *, pos0):
     """:func:`full_attention` on each rank's shards; with the keys in
     shards (``seq``), each query chunk scores this rank's keys at their
     global positions, and the probabilities' max, sums and P·V are
-    reduced over the ranks."""
+    reduced over the ranks.  Where the reference slices a windowed
+    chunk's ``window + C`` keys, a rank scores only its keys inside that
+    span; a rank with none of them scores one key fully masked, and so
+    adds to the max, sums and P·V -1e30, 0 and 0."""
     B, S, n_q, hd = q.shape
     ql, kl, vl = local_shards(q, k, v, partial=seq)
     if not seq:
@@ -416,26 +420,40 @@ def _full_attention_on_shards(cfg, mesh, q, k, v, seq, *, pos0):
         reduce = _reduce_over(mesh, seq)
         Bl, _, Hl, _ = ql.shape
         T = kl.shape[1]
-        k_pos = pos0 + mesh_coordinate(mesh, seq) * T + torch.arange(
-            T, device=ql.device)
+        r0 = mesh_coordinate(mesh, seq) * T  # this rank's first key
         n_kv = kl.shape[2]
         C = divisor_chunk(S, cfg.q_chunk)
+        win = cfg.window
+        local = win > 0 and win % C == 0 and S > win
         qg = ql.reshape(Bl, S, n_kv, Hl // n_kv, hd)
         scale = 1.0 / math.sqrt(hd)
         outs = []
         for i in range(S // C):
             q_c = qg[:, i * C:(i + 1) * C]
             q_pos = pos0 + i * C + torch.arange(C, device=ql.device)
+            a, b = r0, r0 + T  # this rank's keys the chunk may see
+            if local:
+                k0 = max(i * C - win, 0)
+                a, b = max(a, k0), min(b, k0 + win + C)
+            empty = b <= a
+            if empty:
+                # one key, all of it masked: the same ops (and the same
+                # collectives, forward and backward) as every other rank
+                a, b = r0, r0 + 1
+            k_c, v_c = kl[:, a - r0:b - r0], vl[:, a - r0:b - r0]
+            k_pos = pos0 + a + torch.arange(b - a, device=ql.device)
             scores = torch.einsum("bckgd,btkd->bkgct", q_c.float(),
-                                  kl.float()) * scale
+                                  k_c.float()) * scale
             mask = k_pos[None, :] <= q_pos[:, None]
-            if cfg.window > 0:
-                mask &= k_pos[None, :] > q_pos[:, None] - cfg.window
+            if win > 0:
+                mask &= k_pos[None, :] > q_pos[:, None] - win
+            if empty:
+                mask &= False
             scores = torch.where(mask[None, None, None], scores,
                                  torch.full_like(scores, -1e30))
             probs = _softmax_over_shards(scores, reduce)
             o = torch.einsum("bkgct,btkd->bckgd",
-                             probs.to(q_c.dtype).float(), vl.float())
+                             probs.to(q_c.dtype).float(), v_c.float())
             outs.append(reduce(o).to(q_c.dtype))
         out = torch.cat(outs, dim=1).reshape(Bl, S, Hl * hd)
     return from_local(out, mesh, q.placements, (B, S, n_q * hd))
@@ -553,12 +571,61 @@ def embed_tokens(cfg, params, tokens, pos=None):
     return shard(x, "batch", "res_seq", "dmodel")
 
 
-def lm_logits(cfg, params, x):
+def lm_logits(cfg, params, x, on_shards: bool = False):
+    """``x @`` the head, laid out as the reference's logits; with
+    ``on_shards`` (a mesh whose batch and sequence both lie in shards)
+    on each rank's shards (:func:`_logits_on_shards`)."""
     if cfg.tie_embeddings:
         w = params["table"].to(x.dtype).T
     else:
         w = params["head"].to(x.dtype)
-    return shard(x @ w, "batch", "seq", "vocab")
+    y = _logits_on_shards(x, w) if on_shards else x @ w
+    return shard(y, "batch", "seq", "vocab")
+
+
+def _logits_on_shards(x, w):
+    """``x @ w`` for DTensors x (B, C, D) and w (D, V) on each rank's
+    shards.  ``w`` is gathered where its rows (FSDP shards) lie in
+    shards; on the mesh dims holding both x's sequence and w's vocabulary
+    in shards, the operand whose gathered shard is the smaller is
+    gathered, as GSPMD settles such a clash (the measure of the dry-run's
+    rule for other products, ``gathered_numel``).  The product never
+    merges x's batch and sequence into one dim, a layout torch 2.11's
+    DTensor cannot view (it would gather the sequence, and every rank of
+    the model axis would compute all of it)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = x.device_mesh
+    px = list(x.placements)
+    pw = [Replicate() if p.is_shard() and p.dim == 0 else p
+          for p in w.placements]
+    clash = [i for i in range(mesh.ndim)
+             if px[i].is_shard() and pw[i].is_shard()]
+    if clash:
+        small = px if (gathered_numel(x, px, clash)
+                       < gathered_numel(w, pw, clash)) else pw
+        for i in clash:
+            small[i] = Replicate()
+    x, w = x.redistribute(mesh, px), w.redistribute(mesh, pw)
+    # a replicated operand is put to a use of each rank's own
+    (xl,) = local_shards(x, partial=[i for i in range(mesh.ndim)
+                                     if pw[i].is_shard()])
+    (wl,) = local_shards(w, partial=[i for i in range(mesh.ndim)
+                                     if px[i].is_shard()])
+    out = [p if p.is_shard() else (Shard(2) if q.is_shard() else Replicate())
+           for p, q in zip(px, pw)]
+    return from_local(xl @ wl, mesh, out, (x.shape[0], x.shape[1],
+                                          w.shape[1]))
+
+
+def _seq_shards(x) -> int:
+    """The number of shards a DTensor's dim 1 lies in (1 for a plain
+    tensor)."""
+    if not hasattr(x, "device_mesh"):
+        return 1
+    return math.prod(x.device_mesh.shape[i]
+                     for i, p in enumerate(x.placements)
+                     if p.is_shard() and p.dim == 1)
 
 
 def xent_loss(cfg, params, hidden, labels, *, chunk: int = 512,
@@ -571,9 +638,11 @@ def xent_loss(cfg, params, hidden, labels, *, chunk: int = 512,
     B, S, _ = hidden.shape
     C = divisor_chunk(S, chunk)
     n = S // C
+    m = _seq_shards(hidden)
+    on_seq_shards = m > 1 and C % m == 0
 
     def piece(h_c, y_c):
-        logits = lm_logits(cfg, params, h_c).float()
+        logits = lm_logits(cfg, params, h_c, on_shards=on_seq_shards).float()
         lse = torch.logsumexp(logits, dim=-1)
         # the gold logit as a masked sum over the vocab (exact: one term
         # is not zero), which stays local to each shard of a vocab-sharded
@@ -586,9 +655,23 @@ def xent_loss(cfg, params, hidden, labels, *, chunk: int = 512,
         return torch.sum((lse - gold) * valid), torch.sum(valid)
 
     remat = remat and n > 1 and torch.is_grad_enabled()
+    if on_seq_shards:
+        # on a mesh with the sequence in m shards (the residual's sequence
+        # parallelism): a chunk takes C / m tokens of every shard, so its
+        # rows stay on their ranks (the loss sums every token either way)
+        hidden = hidden.reshape(B, m, S // m, hidden.shape[-1])
+        labels = labels.reshape(B, m, S // m)
+
+        def take(t, i):
+            c = C // m
+            return t[:, :, i * c:(i + 1) * c].reshape(
+                (B, C) + tuple(t.shape[3:]))
+    else:
+        def take(t, i):
+            return t[:, i * C:(i + 1) * C]
     tot = cnt = 0.0
     for i in range(n):
-        h_c, y_c = hidden[:, i * C:(i + 1) * C], labels[:, i * C:(i + 1) * C]
+        h_c, y_c = take(hidden, i), take(labels, i)
         l, c = (checkpoint(piece, h_c, y_c, use_reentrant=False) if remat
                 else piece(h_c, y_c))
         tot, cnt = tot + l, cnt + c

@@ -216,7 +216,7 @@ class Model:
                               extras=extras, remat=remat)
         labels = batch["labels"]
         if cfg.family == "vlm":  # loss only over text positions
-            x = x[:, -labels.shape[1]:]
+            x = shard(x[:, -labels.shape[1]:], "batch", "res_seq", "dmodel")
         return L.xent_loss(cfg, params["embed"], x, labels,
                            remat=not probe)
 

@@ -15,7 +15,8 @@ Where the reference's prefill runs its own chunkwise einsums and
   reference divides in the compute dtype; decode keeps the reference's
   one-step update, scaled q and all, in torch ops.
 * **sLSTM** has a true nonlinear recurrence and no kernel in either
-  package: a torch loop over time, one step at a time.
+  package: a torch loop over time, one step at a time (:func:`time_loop`),
+  writing each step's states into buffers of the whole sequence.
 * **RG-LRU** prefill is one call of
   :func:`repro_torch.kernels.rg_lru.ops.rg_lru_scan` from h = 0, whose
   ``h_final`` is the prefill cache's h; decode is the one-step update.
@@ -26,8 +27,10 @@ autograd ``Function`` whose backward launches a hand-written backward
 kernel on the card (``csrc/mlstm_bwd.cu``, ``csrc/rg_lru_bwd.cu``) and
 runs its plain version on the CPU.  Under per-layer remat a training
 step runs each kernel forward twice (the step, then the recompute) and
-backward once.  The sLSTM's loop is differentiated by autograd, step by
-step.
+backward once.  The sLSTM's loop is an autograd ``Function`` too
+(:class:`_SLSTMScan`): its backward is the reverse loop of autograd's
+rules for one step, every step the same ops on the same shapes, and the
+recurrent weights' gradient one product over all steps after it.
 
 Every layer casts to float32 where the reference does, and the kernels
 get contiguous float32.  The leaves a block names in ``FLOAT32`` are ones
@@ -44,7 +47,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import P, shard
+from repro_torch.distributed.sharding import P, current_rules, shard
 from repro_torch.kernels.mlstm import ops as mlstm_ops
 from repro_torch.kernels.rg_lru import ops as rg_lru_ops
 
@@ -54,6 +57,21 @@ from .blocks import donated
 # ---------------------------------------------------------------------------
 # shared helpers
 # ---------------------------------------------------------------------------
+
+#: what :func:`time_loop` runs instead of its loop where set:
+#: ``TIME_LOOP(steps, body)``.  The dry-run sets one that runs the first
+#: steps and counts the last of them for every other (each step runs the
+#: same ops on the same shapes and layouts); None runs every step.
+TIME_LOOP = None
+
+
+def time_loop(steps: int, body) -> None:
+    """``body(i)`` for i = 0 … steps - 1, or :data:`TIME_LOOP`'s run."""
+    if TIME_LOOP is not None:
+        TIME_LOOP(steps, body)
+        return
+    for i in range(steps):
+        body(i)
 
 
 def _causal_conv(x, kernel, buf=None):
@@ -67,6 +85,20 @@ def _causal_conv(x, kernel, buf=None):
     y = sum(xp[:, i:i + S] * kernel[i].to(x.dtype)[None, None, :]
             for i in range(W))
     return y, xp[:, -(W - 1):].clone()
+
+
+def _split_product(x, w, n, mode):
+    """``x @ w``'s first ``n`` columns and the rest.  On a mesh, outside
+    decode, each is a product of its own, its weight's columns over the
+    model axis (``"ff"``): the whole product's columns lie there in
+    shards that do not split at ``n``, and slicing it would gather it.
+    Otherwise (a decode step's few tokens: the weight would move), the
+    product sliced."""
+    if current_rules().mesh is None or mode == "decode":
+        y = x @ w
+        return y[..., :n], y[..., n:]
+    return tuple(x @ shard(part, "fsdp", "ff")
+                 for part in (w[:, :n], w[:, n:]))
 
 
 def _f32(*ts):
@@ -149,11 +181,11 @@ class MLSTMLayer:
         return L.divisor_chunk(s, cfg.rec_chunk)
 
     @staticmethod
-    def _up(cfg, params, x):
+    def _up(cfg, params, x, mode):
         M = 2 * cfg.d_model
         h_in = L.norm_apply(cfg, params["norm"], x)
-        up = h_in @ params["w_up"].to(x.dtype)
-        return shard(up[..., :M], "batch", "seq", "ff"), up[..., M:]
+        xm, z = _split_product(h_in, params["w_up"].to(x.dtype), M, mode)
+        return shard(xm, "batch", "seq", "ff"), z
 
     @staticmethod
     def _qkv_gates(cfg, params, xm, conv_buf):
@@ -177,7 +209,7 @@ class MLSTMLayer:
         """What a prefill of layer input ``x`` (B,S,d) hands
         ``mlstm_chunkwise``: q (unscaled), k, v (B,S,H,m) and i_gate,
         log_f (B,S,H), contiguous float32."""
-        xm, _ = MLSTMLayer._up(cfg, params, x)
+        xm, _ = MLSTMLayer._up(cfg, params, x, "prefill")
         return _f32(*MLSTMLayer._qkv_gates(cfg, params, xm, None)[:5])
 
     @staticmethod
@@ -185,7 +217,7 @@ class MLSTMLayer:
         M, H, m = MLSTMLayer._dims(cfg)
         dt = x.dtype
         B, S = x.shape[:2]
-        xm, z = MLSTMLayer._up(cfg, params, x)
+        xm, z = MLSTMLayer._up(cfg, params, x, mode)
         if mode == "decode":
             q, k, v, i, lf, new_buf = MLSTMLayer._qkv_gates(
                 cfg, params, xm, cache["conv"])
@@ -205,14 +237,25 @@ class MLSTMLayer:
             num = torch.einsum("zha,zhae->zhe", q1, C)
             den = torch.clamp_min(
                 torch.abs(torch.einsum("zha,zha->zh", q1, nv)), 1.0)
+            # (on a mesh: the value dim whole before heads and it merge,
+            # a strided layout whose every later op DTensor plans slowly)
+            num = shard(num, "batch", None, None)
             h = (num / den[..., None]).reshape(B, 1, M).to(dt)
             new_cache = {"C": C, "n": nv, "conv": new_buf}
         elif mode in ("prefill", "train"):
             q, k, v, i, lf, new_buf = MLSTMLayer._qkv_gates(
                 cfg, params, xm, None)
+            # on a mesh: each rank's batch, its heads whole where the
+            # model axis does not divide them (the chunks then run on
+            # every rank of it)
+            ins = _f32(*(shard(t, "batch", "seq", "heads", None)
+                         for t in (q, k, v)),
+                       *(shard(t, "batch", "seq", "heads") for t in (i, lf)))
+            del q, k, v, i, lf  # the compute dtype's copies
             out = mlstm_ops.mlstm_chunkwise(
-                *_f32(q, k, v, i, lf), chunk=MLSTMLayer.prefill_chunk(cfg, S),
+                *ins, chunk=MLSTMLayer.prefill_chunk(cfg, S),
                 return_state=mode == "prefill")
+            del ins
             if mode == "prefill":
                 h, C, n = out
                 new_cache = {"C": C, "n": n, "conv": new_buf}
@@ -296,13 +339,18 @@ class SLSTMLayer:
                                device=device) for k in ("c", "h", "n")}
 
     @staticmethod
-    def _recurrence(cfg, params):
+    def _recurrence(cfg, params, mode=None):
         """The recurrent weights as one batched product over heads, R
         (H, hd, 4 hd) with R[h, d, g hd + e] = r_gates[g, h, d, e], and
-        the bias in the same layout (H, 1, 4 hd); float32."""
+        the bias in the same layout (H, 1, 4 hd); float32.  On a mesh, a
+        decode step takes R with its rows (d) over the model axis: each
+        rank copies and multiplies its part, and the product's sum is
+        reduced."""
         D, H, hd, _ = SLSTMLayer._dims(cfg)
-        r = params["r_gates"].float().permute(1, 2, 0, 3).reshape(
-            H, hd, 4 * hd)
+        rg = params["r_gates"]
+        if mode == "decode":
+            rg = shard(rg, None, None, "ff", None)
+        r = rg.float().permute(1, 2, 0, 3).reshape(H, hd, 4 * hd)
         bias = params["b_gates"].float().reshape(4, H, hd).permute(
             1, 0, 2).reshape(H, 1, 4 * hd)
         return r, bias
@@ -323,42 +371,135 @@ class SLSTMLayer:
         return c, n, h
 
     @staticmethod
+    def scan(r, bias, pre, c, n, h, keep: bool = False):
+        """The time loop over ``pre`` (S,H,B,4hd) from states c, n, h
+        (H,B,hd).  Each step's h is written into a buffer of the whole
+        sequence, hs (S,H,B,hd); with ``keep`` the buffers hold every
+        state c, n, h, the initial ones first, (S+1,H,B,hd) each.
+        Returns (hs or the three buffers, the final (c, n, h))."""
+        S = pre.shape[0]
+        o = 1 if keep else 0
+        # laid out as h (``new_empty`` would give a DTensor replicated)
+        bufs = [torch.empty_like(h.expand((S + o,) + tuple(h.shape)),
+                                 memory_format=torch.contiguous_format)
+                for _ in range(3 if keep else 1)]
+        if keep:
+            for b, v in zip(bufs, (c, n, h)):
+                b[0].copy_(v)
+        state = [c, n, h]
+
+        def body(t):
+            state[:] = SLSTMLayer._step(r, bias, pre[t], *state)
+            for b, v in zip(bufs, state if keep else state[2:]):
+                b[t + o].copy_(v)
+
+        time_loop(S, body)
+        return (bufs if keep else bufs[0]), tuple(state)
+
+    @staticmethod
     def apply(cfg, params, x, *, mode, cache=None, pos=None, extras=None):
         """The time loop runs heads first, (H,B,hd), so a step is a few
-        launches and no copies: the preactivations are laid out so once,
-        the states are taken from and given back to the cache's (B,D)."""
+        launches and no copies but its h into the sequence's buffer: the
+        preactivations are laid out so once, the states are taken from and
+        given back to the cache's (B,D)."""
         D, H, hd, f = SLSTMLayer._dims(cfg)
         dt = x.dtype
         B, S = x.shape[:2]
         hin = L.norm_apply(cfg, params["norm"], x)
-        pre = (hin @ params["w_gates"].to(dt)).float()
+        # on a mesh, outside decode: the product's columns over the model
+        # axis (else every rank of it would compute all of them), then
+        # gathered whole
+        w = params["w_gates"].to(dt)
+        if mode != "decode":
+            w = shard(w, "fsdp", "ff")
+        pre = shard(hin @ w, "batch", "seq", None).float()
         pre = pre.reshape(B, S, 4, H, hd).permute(1, 3, 0, 2, 4).reshape(
             S, H, B, 4 * hd)
         if mode == "decode":
             c, n, h = (cache[k].reshape(B, H, hd).transpose(0, 1)
                        for k in ("c", "n", "h"))
         elif mode in ("prefill", "train"):
-            c = n = h = x.new_zeros((H, B, hd), dtype=torch.float32)
+            # laid out as a step's preactivations
+            c = n = h = torch.zeros_like(pre[0, :, :, :hd])
         else:
             raise ValueError(f"SLSTMLayer mode {mode!r}: train, prefill or "
                              f"decode")
-        r, bias = SLSTMLayer._recurrence(cfg, params)
-        hs = []
-        for t in range(S):
-            c, n, h = SLSTMLayer._step(r, bias, pre[t], c, n, h)
-            hs.append(h)
+        r, bias = SLSTMLayer._recurrence(cfg, params, mode)
+        if mode == "train" and torch.is_grad_enabled():
+            hs = _SLSTMScan.apply(r, bias, pre, c, n, h)
+        else:
+            hs, (c, n, h) = SLSTMLayer.scan(r, bias, pre, c, n, h)
         # (S,H,B,hd) → (B,S,D)
-        h_seq = torch.stack(hs).permute(2, 0, 1, 3).reshape(B, S, D).to(dt)
+        h_seq = hs.permute(2, 0, 1, 3).reshape(B, S, D).to(dt)
+        h_seq = L.rms_norm(h_seq, params["out_scale"])
+        gate, val = _split_product(h_seq, params["w_up"].to(dt), f, mode)
+        out = (L._gelu(gate) * val) @ params["w_down"].to(dt)
+        x = shard(x + out, "batch", "res_seq", "dmodel")
+        if mode == "train":
+            return x, None
         state = {k: v.transpose(0, 1).reshape(B, D)
                  for k, v in (("c", c), ("h", h), ("n", n))}
         if mode == "decode" and donated(extras):
             state = {k: cache[k].copy_(v) for k, v in state.items()}
-        h_seq = L.rms_norm(h_seq, params["out_scale"])
-        up = h_seq @ params["w_up"].to(dt)
-        gate, val = up[..., :f], up[..., f:]
-        out = (L._gelu(gate) * val) @ params["w_down"].to(dt)
-        return (shard(x + out, "batch", "res_seq", "dmodel"),
-                None if mode == "train" else state)
+        return x, state
+
+
+class _SLSTMScan(torch.autograd.Function):
+    """:meth:`SLSTMLayer.scan` differentiated: the forward keeps every
+    state (three (S+1,H,B,hd) buffers); the backward runs the loop in
+    reverse, each step recomputing its gates from the saved states and
+    applying autograd's rule for each op of :meth:`SLSTMLayer._step`, the
+    preactivations' gradient written into a buffer of the whole sequence.
+    The recurrent weights' and the bias's gradients are one product and
+    one sum over all steps after the loop."""
+
+    @staticmethod
+    def forward(ctx, r, bias, pre, c, n, h):
+        (cs, ns, hs), _ = SLSTMLayer.scan(r, bias, pre, c, n, h, keep=True)
+        ctx.save_for_backward(r, bias, pre, cs, ns, hs)
+        return hs[1:]
+
+    @staticmethod
+    def backward(ctx, dhs):
+        aten = torch.ops.aten
+        r, bias, pre, cs, ns, hs = ctx.saved_tensors
+        S, H, B, hd = dhs.shape
+        dpre = torch.empty_like(pre)
+        rt = r.transpose(1, 2)
+        zero = torch.zeros_like(dhs[0])
+        carry = [zero, zero, zero]  # dh, dc, dn from step t + 1
+
+        def body(i):
+            t = S - 1 - i
+            dh_next, dc_next, dn_next = carry
+            g = (pre[t] + torch.bmm(hs[t], r) + bias).view(H, B, 4, hd)
+            z = torch.tanh(g[:, :, 0])
+            sg = torch.sigmoid(g[:, :, 1:])
+            i_, f_, o_ = sg.unbind(2)
+            c, n = cs[t + 1], ns[t + 1]
+            d = torch.clamp_min(n, 1e-6)
+            a = o_ * c
+            dh = dhs[t] + dh_next
+            da = dh / d
+            dd = -dh * a / (d * d)
+            dc = dc_next + da * o_
+            dn = dn_next + dd * (n >= 1e-6)
+            di = dc * z + dn
+            df = dc * cs[t] + dn * ns[t]
+            do = da * c
+            dz = aten.tanh_backward(dc * i_, z)
+            dsg = aten.sigmoid_backward(torch.stack((di, df, do), 2), sg)
+            dg = torch.cat((dz[:, :, None], dsg), 2).view(H, B, 4 * hd)
+            dpre[t].copy_(dg)
+            carry[:] = torch.bmm(dg, rt), dc * f_, dn * f_
+
+        time_loop(S, body)
+        # Σ over steps and batch: h_{t-1}ᵀ dg_t, and dg_t
+        hp = hs[:-1].permute(1, 2, 0, 3).reshape(H, B * S, hd)
+        dgp = dpre.permute(1, 2, 0, 3).reshape(H, B * S, 4 * hd)
+        dr = torch.bmm(hp.transpose(1, 2), dgp)
+        dbias = dgp.sum(1, keepdim=True)
+        return dr, dbias, dpre, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -425,8 +566,13 @@ class RGLRULayer:
         xb = hin @ params["w_x"].to(dt)
         u, new_buf = _causal_conv(xb, params["conv"], conv_buf)
         u = shard(u, "batch", "seq", "ff")
-        r = torch.sigmoid((u @ params["w_r"].to(dt)).float())
-        i = torch.sigmoid((u @ params["w_i"].to(dt)).float())
+        # on a mesh: u whole on the model axis for the gates' products,
+        # whose columns lie in its shards (GSPMD gathers u there; DTensor
+        # might leave a pending sum, and a pointwise op then gathers the
+        # product whole on every rank)
+        uw = shard(u, "batch", "seq", None)
+        r = torch.sigmoid((uw @ params["w_r"].to(dt)).float())
+        i = torch.sigmoid((uw @ params["w_i"].to(dt)).float())
         log_a = -RGLRULayer.C_FACTOR * F.softplus(
             params["lam"].float()) * r  # (B,S,D)
         a = torch.exp(log_a)

@@ -35,7 +35,7 @@ RECORD_FIELDS = {
     "arch", "shape", "mesh", "n_devices", "probe", "eff_groups", "lower_s",
     "compile_s", "memory", "cost", "collectives", "collective_schedule",
     "dropped_shardings", "model_flops", "recurrent_correction_flops",
-    "params_total", "params_active"}
+    "params_total", "params_active", "loops"}
 MEMORY_FIELDS = {
     "argument_size_in_bytes", "output_size_in_bytes", "temp_size_in_bytes",
     "generated_code_size_in_bytes", "alias_size_in_bytes",
@@ -384,3 +384,34 @@ def test_launch_train_refuses_a_world_above_one(tmp_path, monkeypatch):
                     "--device", "cpu", "--distributed", "--ckpt-dir",
                     str(tmp_path)])
     assert not dist.is_initialized()
+
+
+def test_run_cells_judges_a_failed_cell_on_its_exit_not_a_stale_record(
+        tmp_path):
+    """``dryrun.run_cells`` (what ``--held`` runs) removes a record an
+    earlier run left before the cell starts: a cell whose process exits
+    with another code than 0 is an error, not the old record."""
+    from repro_torch.launch import dryrun
+
+    name = dryrun.cell_name("xlstm_350m", "decode_32k", False, 1)
+    stale = tmp_path / f"{name}.json"
+    stale.write_text(json.dumps({"arch": "xlstm_350m", "cost": {}}))
+    records, outputs = dryrun.run_cells(
+        [name], tmp_path, module="repro_torch.launch.no_such_cli")
+    assert records[name]["error"] == "exit 1"
+    assert records[name]["exit"] == 1
+    assert not stale.exists()
+    assert "No module named" in outputs[name]
+
+
+def test_run_cells_stops_a_cell_past_its_timeout(tmp_path):
+    """A cell still running ``timeout`` seconds after the first started is
+    killed and recorded as an error; a cell not yet started is too."""
+    from repro_torch.launch import dryrun
+
+    names = [dryrun.cell_name("xlstm_350m", "decode_32k", m, 1)
+             for m in (False, True)]
+    records, _ = dryrun.run_cells(names, tmp_path, jobs=1, timeout=0)
+    for name in names:
+        assert records[name] == {"error": "past 0 s", "exit": None}
+        assert not (tmp_path / f"{name}.json").exists()

@@ -24,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from make_dryrun_reference import CELLS
+from held_cells import FIRST_CELLS as CELLS
 from repro_torch.configs import get_config
 from repro_torch.configs.base import SHAPES
 from repro_torch.data.pipeline import TokenPipeline

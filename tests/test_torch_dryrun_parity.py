@@ -1,10 +1,12 @@
 """The port's sharded steps held to the JAX package's per-device plan, on
 the CPU: the dry-run's one-group probe (``--probe 1 --mesh single``, 256
-fake ranks) of eight cells against the reference's records committed in
-``src/repro_torch/launch/dryrun_reference.json`` (written by
-``tests/make_dryrun_reference.py``).  At one group the reference
-compiles no while loop, so XLA counts every op and the two records are
-comparable:
+fake ranks) of the first eight cells against the reference's records
+committed in ``src/repro_torch/launch/dryrun_reference.json`` (written by
+``tests/make_dryrun_reference.py``, which holds every cell on both
+meshes; the other files ``tests/test_torch_dryrun_parity_*.py`` hold the
+rest).  At one group the reference unrolls its layers, and its only while
+loops are the sLSTM's scan (``n_while_loops`` > 0), whose body the port's
+record is compared with once (``dryrun.loop_body_once``):
 
 * each cell within ``dryrun.BOUNDS`` of the reference's (FLOPs a device
   ≤ 1.25×, collective algorithm bytes ≤ 2×, ``per_device_total`` ≤ 1.5×;
@@ -29,7 +31,9 @@ from pathlib import Path
 import pytest
 import torch
 
-from make_dryrun_reference import CELLS, cell_key, reference_record
+import make_dryrun_reference
+from held_cells import FIRST_CELLS as CELLS
+from make_dryrun_reference import cell_key, reference_record
 from repro_torch.launch import dryrun
 
 torch.set_num_threads(1)
@@ -73,9 +77,17 @@ def reference():
 
 
 def test_reference_file_holds_every_cell(reference):
-    assert sorted(reference) == sorted(cell_key(a, s) for a, s in CELLS)
-    for rec in reference.values():
-        assert rec["collectives"]["n_while_loops"] == 0  # every op counted
+    """Every (arch, shape) on both meshes; every op counted (no while
+    loop) but the sLSTM's scan over time, forward and in training
+    backward."""
+    assert sorted(reference) == sorted(
+        cell_key(*c) for c in make_dryrun_reference.CELLS)
+    assert len(reference) == 64
+    for key, rec in reference.items():
+        arch, shape = key.split("__")[:2]
+        loops = {"train_4k": 2, "prefill_32k": 1}.get(shape, 0) \
+            if arch == "xlstm_350m" else 0
+        assert rec["collectives"]["n_while_loops"] == loops, key
 
 
 @pytest.mark.parametrize("cell", CELLS, ids=_ids(CELLS))

@@ -3,7 +3,10 @@
 backward on a CPU tensor is the plain version of the backward kernel
 (``mlstm_backward_plain``, ``rg_lru_backward_plain``), held against
 autograd through the plain forwards, against ``jax.vjp`` of the JAX
-package's layers and scan, and through the ``Trainer``.
+package's layers and scan, and through the ``Trainer``; and the sLSTM
+layer's time loop in training (``recurrent._SLSTMScan``, whose backward
+is a reverse loop over the saved states), against autograd of its steps
+in float64 and ``jax.vjp`` of the JAX package's layer.
 
 Tolerances:
 
@@ -377,13 +380,76 @@ def flat(tree, path=()):
 @pytest.mark.parametrize("arch,layer,S", [
     ("xlstm_350m", "MLSTMLayer", 24), ("xlstm_350m", "MLSTMLayer", 40),
     ("recurrentgemma_2b", "RGLRULayer", 24),
-    ("recurrentgemma_2b", "RGLRULayer", 130)])
+    ("recurrentgemma_2b", "RGLRULayer", 130),
+    ("xlstm_350m", "SLSTMLayer", 24), ("xlstm_350m", "SLSTMLayer", 40)])
 def test_layer_train_gradients_match_jax_vjp(arch, layer, S):
     """The layer's train-mode gradients, w.r.t. its input and every
     parameter, against ``jax.vjp`` of the JAX package's layer at
     ``smoke()`` size in float32 (rec_chunk 8: three and five mLSTM
-    chunks; the RG-LRU in one and three of its 64-step chunks)."""
+    chunks; the RG-LRU in one and three of its 64-step chunks; the
+    sLSTM's reverse loop, ``_SLSTMScan``, against the gradient of the
+    reference's ``lax.scan``)."""
     _layer_vjp_check(arch, layer, S, 2)
+
+
+def slstm_inputs(H, B, hd, S, seed, low_n_steps=0):
+    """float64 (r, bias, pre) and initial states (c, n, h) of
+    ``SLSTMLayer.scan``.  The first ``low_n_steps`` steps take the input
+    gate's preactivation at -30 on half of the units: their n stays below
+    the clamp's 1e-6 there, from an initial n of 0."""
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy(scale * rng.standard_normal(shape))
+
+    r, bias = t(H, hd, 4 * hd, scale=0.5), t(H, 1, 4 * hd, scale=0.5)
+    pre = t(S, H, B, 4 * hd)
+    c, h = t(H, B, hd), t(H, B, hd)
+    n = torch.from_numpy(rng.uniform(0.5, 2.0, (H, B, hd)))
+    if low_n_steps:
+        pre.view(S, H, B, 4, hd)[:low_n_steps, :, :, 1, : hd // 2] = -30.0
+        # c small enough that h = o c / 1e-6 stays of order 0.1, large
+        # enough that the clamped branch's dn would move the gradients
+        c[:, :, : hd // 2] *= 1e-7
+        n[:, :, : hd // 2] = 0.0
+    return (r, bias, pre), (c, n, h)
+
+
+def autograd_slstm(leaves_, states):
+    """The sLSTM's hs through ``SLSTMLayer._step`` step by step, for
+    autograd to differentiate."""
+    r, bias, pre = leaves_
+    state, hs = states, []
+    for t in range(pre.shape[0]):
+        state = TR.SLSTMLayer._step(r, bias, pre[t], *state)
+        hs.append(state[2])
+    return torch.stack(hs)
+
+
+@pytest.mark.parametrize("low_n_steps", [0, 3])
+def test_slstm_scan_backward_matches_autograd_float64(low_n_steps):
+    """``_SLSTMScan``'s reverse loop against autograd of the same steps
+    through ``SLSTMLayer._step`` in float64, every input gradient within
+    ``F64_TOL`` of its largest; with ``low_n_steps`` the first steps run
+    the clamp's branch (n < 1e-6: no gradient reaches n through it)."""
+    H, B, hd, S = 2, 3, 8, 12
+    ins, states = slstm_inputs(H, B, hd, S, seed=31 + low_n_steps,
+                               low_n_steps=low_n_steps)
+    if low_n_steps:
+        with torch.no_grad():
+            (_, ns, _), _ = TR.SLSTMLayer.scan(*ins, *states, keep=True)
+        assert bool((ns[1:low_n_steps + 1, :, :, : hd // 2] < 1e-6).all())
+        assert bool((ns[1:, :, :, hd // 2:] >= 1e-6).all())
+    dhs = torch.from_numpy(np.random.default_rng(32).standard_normal(
+        (S, H, B, hd)))
+    leaves_ = [t.clone().requires_grad_(True) for t in ins]
+    hs = TR._SLSTMScan.apply(*leaves_, *states)
+    want_hs = autograd_slstm(leaves_, states)
+    assert torch.equal(hs, want_hs)
+    got = torch.autograd.grad(hs, leaves_, dhs)
+    want = torch.autograd.grad(want_hs, leaves_, dhs)
+    assert all(g.dtype == torch.float64 for g in got)
+    assert_grads_close(got, want, F64_TOL, f"slstm low n {low_n_steps}")
 
 
 def test_mlstm_layer_gradients_at_chunk_256_match_jax_vjp():

@@ -11,11 +11,17 @@ and gradients on plain tensors, then the same on DTensors laid out by
 the model's specs, and compares the gathered results: prefill logits,
 the donated decode step's logits and caches (written in place), the
 loss and every gradient, each within ``TOL`` of its largest value.  The
-cases cover what the eight held cells partition: attention on head
-shards and on sequence shards (a KV head count the model axis does not
-divide, with and without a ring-buffer window), the MoE with its experts
-sharded over the model axis and with them whole on every rank, and the
-mLSTM, sLSTM and RG-LRU decode states.
+cases cover what the held cells partition: attention on head shards and
+on sequence shards (a KV head count the model axis does not divide, with
+and without a ring-buffer window, and a window shorter than a shard,
+where a rank scores only the keys of a chunk's span), the MoE with its
+experts sharded over the model axis and with them whole on every rank,
+the mLSTM, sLSTM and RG-LRU decode states and, in training, the sLSTM's
+loop and the mLSTM's chunks on each rank's batch; a head count the
+model axis does not divide in training under sequence parallelism (the
+loss's chunks on each rank's sequence shard), cross attention with its
+queries split over the model axis, the vision-language model's text
+positions, and a batch of one (the argmax over vocabulary shards).
 
 Run as a script, this file is one rank of that run."""
 
@@ -26,6 +32,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
 import torch
 
 REPO = Path(__file__).resolve().parents[1]
@@ -43,6 +50,7 @@ def _cases():
         return dataclasses.replace(get_config(arch).smoke(), dtype="float32",
                                    **kw)
 
+    sp = {"res_seq": ("model",)}  # sequence parallelism
     return {
         "dense_head_shards": (smoke("llama3_8b"), True),
         "dense_seq_shards": (smoke("llama3_8b", n_heads=3, n_kv_heads=3),
@@ -53,6 +61,15 @@ def _cases():
         "xlstm": (smoke("xlstm_350m"), False),
         "hybrid_window_seq_shards": (smoke("recurrentgemma_2b", n_heads=3),
                                      False),
+        "window_shorter_than_a_shard": (smoke(
+            "recurrentgemma_2b", n_heads=3, window=4, q_chunk=4), True),
+        "xlstm_train": (smoke("xlstm_350m"), True),
+        "heads_undivided_seq_parallel_train": (smoke(
+            "llama3_8b", n_heads=3, n_kv_heads=3), True, sp),
+        "cross_attention_queries_split": (smoke(
+            "whisper_large_v3", n_heads=3, n_kv_heads=3), True),
+        "vlm_text_positions": (smoke("internvl2_26b"), True, sp),
+        "batch_of_one": (smoke("xlstm_350m"), False, None, 1),
     }
 
 
@@ -63,7 +80,7 @@ def _err(got, want) -> float:
     return float((got - want).abs().max() / (1.0 + want.abs().max()))
 
 
-def _case(cfg, train, mesh, rules):
+def _case(cfg, train, mesh, rules, B=B):
     from torch.distributed.tensor import distribute_tensor
     from torch.distributed.tensor.experimental import implicit_replication
 
@@ -80,8 +97,8 @@ def _case(cfg, train, mesh, rules):
     params = model.init(torch.Generator().manual_seed(0))
     data = TokenPipeline(cfg, B, S, seed=1).batch_at(0)
     batch = {k: torch.from_numpy(v.copy()) for k, v in data.items()}
-    prompt = {"tokens": batch["tokens"]}
-    tok = torch.tensor([5, 9], dtype=torch.int32)
+    prompt = {k: v for k, v in batch.items() if k != "labels"}
+    tok = torch.tensor([5, 9][:B], dtype=torch.int32)
     pos = torch.full((B,), S - 1, dtype=torch.int32)
 
     with torch.no_grad():
@@ -110,8 +127,9 @@ def _case(cfg, train, mesh, rules):
                               {"t": P("batch"), "p": P("batch")}).values()
         with implicit_replication(), _GspmdLike():
             with torch.no_grad():
-                logits, _ = model.prefill(dparams, {"tokens": dbatch[
-                    "tokens"]}, MAX_LEN)
+                logits, _ = model.prefill(dparams, {
+                    k: v for k, v in dbatch.items() if k != "labels"},
+                    MAX_LEN)
                 errs["prefill_logits"] = _err(logits, want_logits)
                 dcaches = laid_out(want_caches, model.cache_specs())
                 dec, dec_caches = model.decode_step(dparams, dcaches, dtok,
@@ -147,15 +165,21 @@ def _rank_main(rank: int, out: str) -> None:
                             rank=rank, world_size=WORLD)
     try:
         mesh = make_local_mesh(2, 2, "cpu")
-        rules = rules_for_mesh(mesh)
-        res = {name: _case(cfg, train, mesh, rules)
-               for name, (cfg, train) in _cases().items()}
+        res = {}
+        for name, (cfg, train, *more) in _cases().items():
+            overrides = more[0] if more else None
+            res[name] = _case(cfg, train, mesh,
+                              rules_for_mesh(mesh, overrides=overrides),
+                              *more[1:])
     finally:
         dist.destroy_process_group()
     Path(out, f"rank{rank}.json").write_text(json.dumps(res))
 
 
-def test_sharded_steps_equal_one_device_steps(tmp_path):
+@pytest.fixture(scope="module")
+def gloo_run(tmp_path_factory):
+    """Each rank's {case: {result: error}} of one run on four ranks."""
+    tmp_path = tmp_path_factory.mktemp("gloo")
     env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
     procs = [subprocess.Popen(
         [sys.executable, __file__, str(r), str(tmp_path)],
@@ -170,12 +194,25 @@ def test_sharded_steps_equal_one_device_steps(tmp_path):
                 p.kill()
     assert all(p.returncode == 0 for p in procs), "\n".join(
         log[-3000:] for log in logs)
-    for r in range(WORLD):
-        res = json.loads((tmp_path / f"rank{r}.json").read_text())
+    return [json.loads((tmp_path / f"rank{r}.json").read_text())
+            for r in range(WORLD)]
+
+
+def test_sharded_steps_equal_one_device_steps(gloo_run):
+    for r, res in enumerate(gloo_run):
         assert set(res) == set(_cases())
         for case, errs in res.items():
             assert errs and all(e <= TOL for e in errs.values()), (
                 r, case, {k: e for k, e in errs.items() if e > TOL})
+
+
+@pytest.mark.parametrize("case", list(_cases()))
+def test_case_equals_one_device(gloo_run, case):
+    """One case on every rank, each result within ``TOL``."""
+    for r, res in enumerate(gloo_run):
+        errs = res[case]
+        assert errs and all(e <= TOL for e in errs.values()), (
+            r, case, {k: e for k, e in errs.items() if e > TOL})
 
 
 if __name__ == "__main__":
