@@ -14,7 +14,10 @@ every run) at shapes both trees take:
   and with grad (``save``);
 * flash attention at head widths 64 and 128 (``FLASH_SWEEP``, the model
   shape, causal and not, bf16 and float32);
-* the FFT at every power of two from 2 to 2^20, forward and inverse.
+* the FFT at every power of two from 2 to 2^21 (1 and 3 rows up to
+  2^16, one above), and at every length of phase 3's ``FFT_ANY_N`` (3 to
+  2^20 - 1, Bluestein's route) at phase 3's rows (``fft_any_rows``),
+  forward and inverse.
 
 Each run also times (CUDA events, 50 calls after 5) flash attention at
 ``FLASH_MODEL`` (bf16, float32) and the mLSTM forward at
@@ -85,8 +88,9 @@ for B, S, Hq, Hkv, d, bq, bk, dt in cases["flash"]:
 for rows, n in cases["fft"]:
     g = gen(n + rows)
     x = torch.randn(rows, n, dtype=torch.complex64, device=dev, generator=g)
+    kind = "fft" if n & (n - 1) == 0 else "bluestein"
     for fwd in (True, False):
-        out[f"fft rows{rows} n{n} {'fwd' if fwd else 'inv'}"] = digest(
+        out[f"{kind} rows{rows} n{n} {'fwd' if fwd else 'inv'}"] = digest(
             FO.fft(x, fwd))
 torch.cuda.synchronize()
 
@@ -136,8 +140,9 @@ def cases():
     flash = [list(t[:7]) + [str(t[7])[6:]] for t in cs.FLASH_SWEEP]
     flash += [[m["B"], m["S"], m["Hq"], m["Hkv"], m["d"], 256, 256, dt]
               for dt in ("bfloat16", "float32")]
-    fft = [[rows, 1 << p] for p in range(1, 21)
+    fft = [[rows, 1 << p] for p in range(1, 22)
            for rows in ((1, 3) if p <= 16 else (1,))]
+    fft += [[rows, n] for n in cs.FFT_ANY_N for rows in cs.fft_any_rows(n)]
     mm = cs.MLSTM_MODEL
     return {"mlstm": mlstm, "flash": flash, "fft": fft,
             "flash_timed": [[m["B"], m["S"], m["Hq"], m["Hkv"], m["d"], dt]
@@ -166,7 +171,7 @@ def main() -> int:
     first = runs[0][1]["digests"]
     differ = sorted(k for _, r in runs[1:] for k in first
                     if r["digests"].get(k) != first[k])
-    for kind in ("mlstm", "flash", "fft"):
+    for kind in ("mlstm", "flash", "fft", "bluestein"):
         keys = [k for k in first if k.startswith(kind)]
         bad = [k for k in keys if k in differ]
         print(f"ab_bits {kind}: {len(keys)} cases, {len(keys) - len(bad)} "

@@ -7,10 +7,14 @@ Phases, each of which raises (exit code 1) on a failed check:
 1. card — the GPU's name and power limit (``nvidia-smi``);
 2. build — compiles ``src/repro_torch/csrc/*.cu`` with nvcc (sm_90a);
 3. kernels — every CUDA kernel against its plain torch version on the
-   card: FFT at every power of two from 2 to 2^20 (1, 3, 128 and 1024
+   card: FFT at every power of two from 2 to 2^21 (1, 3, 128 and 1024
    rows up to 8192, one launch; 1, 3 and 128 up to 65536 and 1 and 3
    above, the four-step passes), forward and inverse (and against
-   ``torch.fft``), ZIP at every length the radar and multitenant paths
+   ``torch.fft``), and at lengths that are not powers of two
+   (``FFT_ANY_N``) through the fused Bluestein route: one FFT launch
+   count and no ZIP count a call, the same bits as the composition of
+   the FFT and ZIP kernels it replaces, within tolerance of the plain
+   composition and numpy; ZIP at every length the radar and multitenant paths
    give it (32 to 8192, 131072) and odd shapes, both at fragments'
    storage offsets (odd ones
    too, and ZIP operands at different 16-byte phases), inputs unwritten
@@ -465,13 +469,23 @@ def phase_kernels(dev):
 
 def _bluestein_checks(crandn) -> float:
     """The FFT at lengths that are not powers of two (:data:`FFT_ANY_N`),
-    forward and inverse: the kernels' composition against the same
-    composition over the plain versions, and against numpy's complex128
-    FFT, both at the power-of-two tolerance of its inner length (an
-    inverse times n); bit-identical across block_rows; the input
-    unwritten.  Returns the worst error against the plain version."""
+    forward and inverse, through the fused route: one FFT launch count
+    and no ZIP count a call; ``torch.equal`` to the composition of the
+    FFT and ZIP kernels it replaces (``bluestein`` over ``fft_kernel``
+    and ``zip_kernel``); against the same composition over the plain
+    versions, and against numpy's complex128 FFT, both at the
+    power-of-two tolerance of its inner length (an inverse times n);
+    bit-identical across block_rows; the input unwritten.  Returns the
+    worst error against the plain version."""
     from repro_torch.kernels.fft import bluestein as BL
+    from repro_torch.kernels.fft import fft as F
     from repro_torch.kernels.fft import ops as fft_ops
+    from repro_torch.kernels.zip import zip as Z
+
+    def composed(x, fwd):
+        return BL.bluestein(
+            x, inverse=not fwd,
+            fft=lambda a, inv: F.fft_kernel(a, inverse=inv), mul=Z.zip_kernel)
 
     worst = 0.0
     for n in FFT_ANY_N:
@@ -483,9 +497,20 @@ def _bluestein_checks(crandn) -> float:
             before = x.clone()
             x64 = x.cpu().numpy().astype(np.complex128)
             for fwd in (True, False):
+                BL.tables(n, not fwd, x.device)
+                counts = (F.launches, Z.launches)
                 got = fft_ops.fft(x, fwd)
                 torch.cuda.synchronize()
                 what = f"fft n={n} rows={rows} {'fwd' if fwd else 'inv'}"
+                if (F.launches - counts[0], Z.launches - counts[1]) != (1, 0):
+                    raise AssertionError(
+                        f"{what}: {F.launches - counts[0]} FFT and "
+                        f"{Z.launches - counts[1]} ZIP launch counts, not "
+                        f"one fused FFT launch")
+                if not torch.equal(got, composed(x, fwd)):
+                    raise AssertionError(f"{what}: the fused route's bits "
+                                         f"differ from the FFT and ZIP "
+                                         f"kernels' composition")
                 s = 1 if fwd else n
                 w_plain = max(w_plain, close(
                     got * s, BL.bluestein_plain(x, inverse=not fwd) * s,
@@ -505,9 +530,10 @@ def _bluestein_checks(crandn) -> float:
         log(f"[kernels] fft n={n} (Bluestein, inner "
             f"{BL.inner_length(n)}) rows "
             f"{'/'.join(map(str, fft_any_rows(n)))} fwd+inv (inverse times "
-            f"n): max|err| vs plain {w_plain:.3e}, vs numpy complex128 "
-            f"{w_np:.3e} (rtol {rtol}, atol {atol:.2e}); block_rows "
-            f"8/32/128 bit-identical; input unwritten")
+            f"n): one FFT launch a call, the bits of the FFT and ZIP "
+            f"kernels' composition; max|err| vs plain {w_plain:.3e}, vs "
+            f"numpy complex128 {w_np:.3e} (rtol {rtol}, atol {atol:.2e}); "
+            f"block_rows 8/32/128 bit-identical; input unwritten")
         worst = max(worst, w_plain)
     return worst
 
@@ -697,12 +723,14 @@ def phase_timing(dev):
 
 
 def _bluestein_timing(dev, gen):
-    """The FFT through Bluestein at :data:`FFT_ANY_TIMED`: a call is two
-    FFT launches (each one or two kernels) and three ZIP launches, beside
-    the zero fill and copies of the padding; its device time sums every
-    kernel and copy of the call (:func:`_device_ms_all`), and the launch
-    counters count a call's launches.  The bound is the DFT's own (one
-    pass over the data, 5 N log2 N flops); the library call is
+    """The FFT through Bluestein at :data:`FFT_ANY_TIMED`: a call is one
+    C entry (one kernel up to M = 8192, four four-step kernels above);
+    its device time sums every kernel and copy of the call
+    (:func:`_device_ms_all`), and the launch counters count a call's
+    launches.  Beside it the composition of the FFT and ZIP kernels the
+    route replaces (two FFT and three ZIP launches, a zero fill and
+    copies), timed the same way.  The bound is the DFT's own (one pass
+    over the data, 5 N log2 N flops); the library call is
     ``torch.fft.fft`` at the same N.  Also the peak memory a call adds
     (its workspace) and how far the kernels' result is from the plain
     composition's."""
@@ -733,6 +761,13 @@ def _bluestein_timing(dev, gen):
                                     5.0 * nrows * n * math.log2(n))
         iters = 200 if n < 1 << 16 else 50
         lib_dev, lib_kernels = _device_ms_all(lambda: torch.fft.fft(x))
+
+        def composed():
+            return BL.bluestein(
+                x, inverse=False, fft=lambda a, inv: F.fft_kernel(
+                    a, inverse=inv), mul=Z.zip_kernel)
+
+        comp_dev, comp_kernels = _device_ms_all(composed, iters=20)
         rec = {"kernel": "fft", "route": "bluestein", "rows": nrows, "n": n,
                "inner_n": BL.inner_length(n), "launches_per_call": launches,
                "kernel_ms": _time_ms(call, iters),
@@ -746,6 +781,9 @@ def _bluestein_timing(dev, gen):
                                            iters=100),
                "library_device_ms": lib_dev,
                "library_device_kernels_per_call": lib_kernels,
+               "composition_ms": _time_ms(composed, iters),
+               "composition_device_ms": comp_dev,
+               "composition_device_kernels_per_call": comp_kernels,
                "plain_ms": _time_ms(
                    lambda: BL.bluestein_plain(x, inverse=False), 5,
                    warmup=2),
@@ -1356,9 +1394,10 @@ def _fzf_points(points, n):
 class DeviceTaskCounter:
     """fft/ifft and zip tasks the runtimes placed on GPU/accelerator
     PEs, from their task logs (task names carry the op as prefix), and
-    the kernel launches they make: one a task, but an FFT task of a
-    length that is not a power of two (``n``, the chain's length) is
-    Bluestein's two FFT and three ZIP launches."""
+    the kernel launches they make: one a task, an FFT task of a length
+    that is not a power of two (``n``, the chain's length) too (the
+    fused Bluestein route, one FFT launch count); those are counted
+    apart."""
 
     def __init__(self):
         self.fft = 0
@@ -1380,8 +1419,7 @@ class DeviceTaskCounter:
 
     def launches(self):
         """The FFT and ZIP kernel launches these tasks make."""
-        return {"fft": self.fft + self.fft_bluestein,
-                "zip": self.zip + 3 * self.fft_bluestein}
+        return {"fft": self.fft, "zip": self.zip}
 
 
 def _compare(build, counter, *, device, accelerators=("gpu0",), n_cpu=1,
@@ -4505,7 +4543,9 @@ def main() -> int:
                 {k: r.get(k) for k in (
                     "rows", "n", "route", "inner_n", "launches_per_call",
                     "workspace_bytes", "kernel_ms", "kernel_sync_ms",
-                    "kernel_device_ms", "library_ms", "library_device_ms",
+                    "kernel_device_ms", "composition_ms",
+                    "composition_device_ms", "library_ms",
+                    "library_device_ms",
                     "plain_ms", "bound_ms", "bound_by", "bound_two_pass_ms",
                     "bound_two_pass_twiddles_ms")}
                 for r in timing if r["kernel"] == "fft"]}

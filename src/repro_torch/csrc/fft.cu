@@ -5,12 +5,11 @@
 // (launched by fft_planes): the forward DFT along each row, or the inverse
 // scaled by 1/N, of N = 2^p complex values, p from 1 to 21, in natural
 // order: one launch of fft_rows up to N = 8192, two of fft_four_step above
-// (see "Above 8192" at the end of this note).  A length that is not a
-// power of two never reaches this file as such: the wrapper
-// (kernels/fft/bluestein.py) composes it from launches of this kernel and
-// of zip.cu (Bluestein's chirp-z algorithm: chirp, FFT of length M = the
-// power of two >= 2N - 1, the filter's spectrum, inverse FFT, chirp), so
-// N = 2^20 - 1 takes inner transforms of 2^21 -- the reason for p 21.  The inverse is computed as
+// (see "Above 8192" below).  Any other length N from 3 to 2^20 goes through
+// Bluestein's chirp-z algorithm, also here (see "Bluestein" at the end of
+// this note): a convolution of length M = the power of two >= 2N - 1, so
+// N = 2^20 - 1 takes inner transforms of 2^21 -- the reason for p 21.  The
+// inverse is computed as
 // conj(fft(conj x)) / N: the input is conjugated as it is loaded and the
 // output as it is stored, which negates exactly and so equals conjugating
 // every twiddle.
@@ -90,15 +89,47 @@
 // twiddle tables and swizzle of an N1- or N2-point row), and copies the
 // result out; the step twiddles w_N^(n2 k1) come from a table of N entries
 // laid out as the workspace (computed in float64 and rounded once by the
-// wrapper), read coalesced beside the stores.  The inverse conjugates on
+// wrapper), read coalesced beside the stores.  A strided copy puts a
+// half-warp's 16 accesses on TILE lines at 16 / TILE elements each; the
+// rows' swizzle alone sends every line's element e to one bank pair (an
+// 8-way conflict on every copy), so line c of a tile also XORs c 16 / TILE
+// into its bank bits (tile_xor): the copies land in 16 distinct bank pairs
+// at every line length, and the passes, whose half-warps never leave a
+// line, keep a conflict-free exchange (tests/test_torch_fft_plan.py walks
+// both).  The inverse conjugates on
 // pass 1's loads and pass 2's stores.  A row's blocks and arithmetic depend
 // on N alone, so neither the batch nor block_rows changes its bits.  It
 // moves each value through device memory twice (2 x 16 N bytes, and 8 N of
-// step twiddles): the strided loads of pass 1 are where its time goes.
+// step twiddles), so two passes over the data bound it; a one-pass design
+// (a row in the shared memory of a thread-block cluster) would halve that.
+// Pass 1's loads are 64-byte runs 16 KB apart at 2^20: what is left of its
+// time beyond the bytes.
+//
+// Bluestein.  With w_k = exp(-+ i pi k^2 / N) (kernels/fft/bluestein.py
+// builds the chirp w and the filter's spectrum, one table each per N and
+// direction), the DFT is w_k times the circular convolution of x w with
+// the filter, which the FFT of length M computes: forward FFT of x w
+// zero-padded to M, product with the spectrum, inverse FFT (scale 1/M),
+// product with w, the first N values.  Every step is the arithmetic of
+// the launches it replaces (the chirp and spectrum products are zip.cu's,
+// the passes fft_rows' or fft_four_step's), in their order, so the output
+// has their composition's bits; only the data stays on the chip between
+// them.  Up to M = 8192 (N <= 4096) bluestein_rows does it all in one
+// launch, with launch_plan's geometry of M (block_rows as in fft_rows): a
+// row's threads load x times w straight into registers (zeros past N: no
+// padded buffer), run the forward passes, the last one storing its
+// result times the spectrum, conjugated, into shared memory, where the
+// inverse's first pass reads it after one barrier, and store times w only
+// the first N.
+// Above, four launches of fft_four_step carry the products at their edges:
+// forward pass 1 loads x w (zeros past N), forward pass 2 stores, inverse
+// pass 1 loads that times the spectrum, inverse pass 2 stores times w only
+// the first N; a row's workspace is two buffers of M.
 
 #include <cuda_runtime.h>
 
 #include <atomic>
+#include <type_traits>
 
 namespace {
 
@@ -210,31 +241,51 @@ __device__ __forceinline__ void load_twiddles(float2 (&w)[Plan<LOG>::W],
   }
 }
 
+// What the last pass of a row does with element e of the result: put(e,
+// value), or with NoPut leave it in shared memory as the passes before.
+struct NoPut {
+  __device__ __forceinline__ void operator()(int, float2) const {}
+};
+
+// The last pass's store of fft_rows: conjugated (sgn = -1) and scaled.
+struct RowStore {
+  float2* __restrict__ dst;
+  bool active;
+  float sgn, scale;
+  __device__ __forceinline__ void operator()(int e, float2 y) const {
+    if (active) {
+      dst[e] = make_float2(__fmul_rn(y.x, scale),
+                           __fmul_rn(__fmul_rn(y.y, sgn), scale));
+    }
+  }
+};
+
 // Pass Q of a row of 2^LOG held by thread t.  On entry v holds the pass's
-// inputs (pass 0 of a row) or they wait in shared buffer `in` (later
-// passes, and every pass of a TILE: a four-step block's lines), and w
-// holds the pass's twiddles; on exit the outputs are in shared buffer
-// `out` or, after the last pass of a row, in `dst`, and w holds the next
-// pass's twiddles.
-template <int LOG, int Q, bool TILE>
+// inputs (pass 0 of a row loaded from device memory) or they wait in
+// shared buffer `in` (later passes, and pass 0 when IN0: a four-step
+// block's lines, Bluestein's inverse); w holds the pass's twiddles.  On
+// exit the outputs are in shared buffer `out` or, after the last pass
+// unless Put is NoPut, handed to `put`; w holds the next pass's twiddles.
+// Element e of the line at `base` is stored at swz(base + e) ^ lx (lx:
+// tile_xor of a four-step line, else 0).
+template <int LOG, int Q, bool IN0, class Put>
 __device__ __forceinline__ void fft_pass(float2 (&v)[Plan<LOG>::V],
                                          float2 (&w)[Plan<LOG>::W],
                                          const float2* __restrict__ tw,
-                                         const float2* in, float2* out,
-                                         float2* __restrict__ dst, int t,
-                                         int base, bool active, float sgn,
-                                         float scale) {
+                                         const float2* in, float2* out, int t,
+                                         int base, int lx, const Put& put) {
   using P = Plan<LOG>;
   constexpr int B = P::bits(Q), R = 1 << B, BF = P::V / R;
   constexpr int NSLOG = P::VLOG * Q, NS = 1 << NSLOG;
-  if constexpr (Q > 0 || TILE) {
+  constexpr bool OUT = !std::is_same_v<Put, NoPut>;
+  if constexpr (Q > 0 || IN0) {
     __syncthreads();  // pass Q - 1's outputs (or a tile's lines) are in `in`
 #pragma unroll
     for (int i = 0; i < BF; ++i) {
       const int j = t + i * P::T;
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        v[i * R + r] = in[P::swz(base + j + r * (P::N / R))];
+        v[i * R + r] = in[P::swz(base + j + r * (P::N / R)) ^ lx];
       }
       if constexpr (Q > 0) {
 #pragma unroll
@@ -253,33 +304,26 @@ __device__ __forceinline__ void fft_pass(float2 (&v)[Plan<LOG>::V],
     const int d0 = ((j >> NSLOG) << (NSLOG + B)) + (j & (NS - 1));
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      const float2 y = v[i * R + r];
-      if constexpr (Q == P::PASSES - 1 && !TILE) {
-        if (active) {
-          dst[d0 + r * NS] = make_float2(__fmul_rn(y.x, scale),
-                                         __fmul_rn(__fmul_rn(y.y, sgn), scale));
-        }
+      if constexpr (Q == P::PASSES - 1 && OUT) {
+        put(d0 + r * NS, v[i * R + r]);
       } else {
-        out[P::swz(base + d0 + r * NS)] = y;
+        out[P::swz(base + d0 + r * NS) ^ lx] = v[i * R + r];
       }
     }
   }
 }
 
-template <int LOG, int Q, bool TILE>
+template <int LOG, int Q, bool IN0, class Put>
 __device__ __forceinline__ void fft_passes(float2 (&v)[Plan<LOG>::V],
                                            float2 (&w)[Plan<LOG>::W],
                                            const float2* __restrict__ tw,
-                                           float2* s0, float2* s1,
-                                           float2* __restrict__ dst, int t,
-                                           int base, bool active, float sgn,
-                                           float scale) {
+                                           float2* s0, float2* s1, int t,
+                                           int base, int lx, const Put& put) {
   if constexpr (Q < Plan<LOG>::PASSES) {
     // pass Q reads the buffer pass Q - 1 wrote and writes the other one
-    fft_pass<LOG, Q, TILE>(v, w, tw, (Q & 1) ? s0 : s1, (Q & 1) ? s1 : s0,
-                           dst, t, base, active, sgn, scale);
-    fft_passes<LOG, Q + 1, TILE>(v, w, tw, s0, s1, dst, t, base, active, sgn,
-                                 scale);
+    fft_pass<LOG, Q, IN0>(v, w, tw, (Q & 1) ? s0 : s1, (Q & 1) ? s1 : s0, t,
+                          base, lx, put);
+    fft_passes<LOG, Q + 1, IN0>(v, w, tw, s0, s1, t, base, lx, put);
   }
 }
 
@@ -318,24 +362,129 @@ __global__ void __launch_bounds__(kMaxThreads)
       if (active) a = __ldg(x + t + r * (P::N / R0));
       v[r] = make_float2(a.x, __fmul_rn(a.y, sgn));
     }
-    fft_passes<LOG, 0, false>(v, w, tw, s0, s1, dst + row * P::N, t, base,
-                              active, sgn, scale);
+    fft_passes<LOG, 0, false>(
+        v, w, tw, s0, s1, t, base, 0,
+        RowStore{dst + row * P::N, active, sgn, scale});
   }
 }
 
+// Bluestein's forward leaves element e of its result times the spectrum,
+// conjugated -- the inverse's input -- where its last pass would store it
+// in shared memory (res, the line at base).
+template <int LOG>
+struct SpectrumConj {
+  float2* res;
+  const float2* __restrict__ spectrum;
+  int base;
+  __device__ __forceinline__ void operator()(int e, float2 y) const {
+    const float2 b = cmul(y, __ldg(spectrum + e));
+    res[Plan<LOG>::swz(base + e)] = make_float2(b.x, __fmul_rn(b.y, -1.0f));
+  }
+};
+
+// Bluestein's last store: the inverse's conjugate scaled by 1/M, times the
+// chirp, for the first n elements only.
+struct ChirpStore {
+  float2* __restrict__ dst;
+  const float2* __restrict__ chirp;
+  int n;
+  bool active;
+  float scale;
+  __device__ __forceinline__ void operator()(int e, float2 y) const {
+    if (active && e < n) {
+      dst[e] = cmul(make_float2(__fmul_rn(y.x, scale),
+                                __fmul_rn(__fmul_rn(y.y, -1.0f), scale)),
+                    __ldg(chirp + e));
+    }
+  }
+};
+
+// Bluestein's DFT of rows of n (src and dst rows n apart) through inner
+// transforms of M = 2^LOG <= 8192, in one launch with fft_rows' geometry
+// of M: load x w (zeros past n), the forward passes into shared memory
+// (the last one stores times the spectrum, conjugated), the inverse
+// passes from there, store times w for e < n.  scale = 1/M.  Two shared
+// buffers of a group's rows, even for one pass.
+template <int LOG>
+__global__ void __launch_bounds__(kMaxThreads)
+    bluestein_rows(const float2* __restrict__ src, float2* __restrict__ dst,
+                   const float2* __restrict__ tw,
+                   const float2* __restrict__ chirp,
+                   const float2* __restrict__ spectrum, long long rows,
+                   int n, int rows_per_group, int groups_per_block,
+                   float scale) {
+  using P = Plan<LOG>;
+  extern __shared__ float2 smem[];
+  const int rloc = threadIdx.x >> P::TLOG;
+  const int t = threadIdx.x & (P::T - 1);
+  const int buf = rows_per_group * P::N;
+  float2* s0 = smem;
+  float2* s1 = smem + buf;
+  const int base = rloc * P::N;
+  const long long first = (long long)blockIdx.x * groups_per_block;
+  constexpr int R0 = 1 << P::bits(0);  // = V: one butterfly a thread
+  for (int gi = 0; gi < groups_per_block; ++gi) {
+    const long long row0 = (first + gi) * rows_per_group;
+    if (row0 >= rows) break;  // the same for the whole block
+    const long long row = row0 + rloc;
+    const bool active = row < rows;
+    if (gi > 0) __syncthreads();  // the last group is done with s0, s1
+    const float2* x = src + row * n;
+    float2 v[P::V];
+    float2 w[P::W];
+#pragma unroll
+    for (int r = 0; r < R0; ++r) {
+      const int e = t + r * (P::N / R0);
+      v[r] = make_float2(0.f, 0.f);
+      if (active && e < n) v[r] = cmul(__ldg(x + e), __ldg(chirp + e));
+    }
+    // the forward's last pass writes s0 after an odd number of passes
+    float2* res = (P::PASSES & 1) ? s0 : s1;
+    fft_passes<LOG, 0, false>(v, w, tw, s0, s1, t, base, 0,
+                              SpectrumConj<LOG>{res, spectrum, base});
+    // the inverse's first pass reads res and writes the other buffer
+    const ChirpStore store{dst + row * n, chirp, n, active, scale};
+    if constexpr (P::PASSES & 1) {
+      fft_passes<LOG, 0, true>(v, w, tw, s1, s0, t, base, 0, store);
+    } else {
+      fft_passes<LOG, 0, true>(v, w, tw, s0, s1, t, base, 0, store);
+    }
+  }
+}
+
+// What a four-step pass does at its edges besides the plain FFT's: the
+// plain pass, Bluestein's chirp (pass 1 loads x w, zeros past n; pass 2
+// stores times w, the first n only), Bluestein's spectrum (pass 1 loads
+// the forward's output times the spectrum).
+enum FourStepEdge : int { kPlain = 0, kChirp = 1, kSpectrum = 2 };
+
+// The bank bits line c of a four-step tile over lines of 2^LOG adds to
+// the swizzle: c 16 / TILE, so a strided copy's TILE lines at one element
+// land in distinct bank pairs (fft.py tile_slot mirrors it).
+template <int LOG>
+__device__ __forceinline__ int tile_xor(int c) {
+  return (c << (4 - tile_log(LOG))) & 15;
+}
+
 // One pass of the four-step FFT of rows of N = 2^LOG M (M = 2^mlog lines
-// of 2^LOG a row).  Block (row, b) takes lines b TILE + c, c < TILE, one
-// to each run of T threads.  FIRST: line c is column n2 = b TILE + c of the
-// row seen as 2^LOG x M (element e at e M + n2), conjugated when sgn = -1;
-// element e of its DFT, times step[e M + n2] = w_N^(n2 e), goes to e M + n2
-// of the workspace.  Otherwise: line c is workspace row k1 = b TILE + c
-// (element e at k1 2^LOG + e); element e of its DFT goes to k1 + e M,
-// conjugated when sgn = -1 and scaled.
-template <int LOG, bool FIRST>
+// of 2^LOG a row; row r at src + r src_stride, dst + r dst_stride).  Block
+// (row, b) takes lines b TILE + c, c < TILE, one to each run of T
+// threads.  FIRST: line c is column n2 = b TILE + c of the row seen as
+// 2^LOG x M (element e at e M + n2), conjugated when sgn = -1; element e
+// of its DFT, times step[e M + n2] = w_N^(n2 e), goes to e M + n2 of the
+// workspace.  Otherwise: line c is workspace row k1 = b TILE + c (element
+// e at k1 2^LOG + e); element e of its DFT goes to k1 + e M, conjugated
+// when sgn = -1 and scaled.  EDGE (Bluestein's): FIRST with kChirp loads
+// x w (aux the chirp; zeros from element n on), with kSpectrum x times
+// aux (the spectrum); otherwise kChirp stores times aux for elements
+// below n only.
+template <int LOG, bool FIRST, int EDGE>
 __global__ void __launch_bounds__(kMaxThreads)
     fft_four_step(const float2* __restrict__ src, float2* __restrict__ dst,
                   const float2* __restrict__ tw,
-                  const float2* __restrict__ step, int mlog, float sgn,
+                  const float2* __restrict__ step,
+                  const float2* __restrict__ aux, long long src_stride,
+                  long long dst_stride, int n, int mlog, float sgn,
                   float scale) {
   using P = Plan<LOG>;
   constexpr int TL = tile_log(LOG), TILE = 1 << TL;  // lines a block
@@ -344,11 +493,10 @@ __global__ void __launch_bounds__(kMaxThreads)
   float2* s0 = smem;
   float2* s1 = smem + TILE * P::N;
   const int tiles_log = mlog - TL;
-  const long long row_off = (long long)(blockIdx.x >> tiles_log)
-                            << (LOG + mlog);
+  const long long row = blockIdx.x >> tiles_log;
   const int col0 = (blockIdx.x & ((1 << tiles_log) - 1)) << TL;
-  src += row_off;
-  dst += row_off;
+  src += row * src_stride;
+  dst += row * dst_stride;
   // the tile's lines into s1 (what pass 0 reads), line c at c 2^LOG: in
   // pass 1 a warp reads 4 elements of 8 adjacent columns, in pass 2 32
   // adjacent elements of a workspace row
@@ -360,21 +508,29 @@ __global__ void __launch_bounds__(kMaxThreads)
     if constexpr (FIRST) {
       c = idx & (TILE - 1);
       e = idx >> TL;
-      a = __ldg(src + ((long long)e << mlog) + col0 + c);
+      const long long off = ((long long)e << mlog) + col0 + c;
+      if constexpr (EDGE == kChirp) {
+        a = make_float2(0.f, 0.f);
+        if (off < n) a = cmul(__ldg(src + off), __ldg(aux + off));
+      } else if constexpr (EDGE == kSpectrum) {
+        a = cmul(__ldg(src + off), __ldg(aux + off));
+      } else {
+        a = __ldg(src + off);
+      }
       a.y = __fmul_rn(a.y, sgn);
     } else {
       c = idx >> LOG;
       e = idx & (P::N - 1);
       a = __ldg(src + ((long long)(col0 + c) << LOG) + e);
     }
-    s1[P::swz(c * P::N + e)] = a;
+    s1[P::swz(c * P::N + e) ^ tile_xor<LOG>(c)] = a;
   }
   const int rloc = threadIdx.x >> P::TLOG;
   const int t = threadIdx.x & (P::T - 1);
   float2 v[P::V];
   float2 w[P::W];
-  fft_passes<LOG, 0, true>(v, w, tw, s0, s1, nullptr, t, rloc * P::N, true,
-                           1.0f, 1.0f);
+  fft_passes<LOG, 0, true>(v, w, tw, s0, s1, t, rloc * P::N,
+                           tile_xor<LOG>(rloc), NoPut{});
   __syncthreads();  // the last pass's outputs are all in `res`
   const float2* res = ((P::PASSES - 1) & 1) ? s1 : s0;
 #pragma unroll
@@ -382,13 +538,18 @@ __global__ void __launch_bounds__(kMaxThreads)
     const int idx = threadIdx.x + k * THREADS;
     const int c = idx & (TILE - 1);
     const int e = idx >> TL;
-    const float2 y = res[P::swz(c * P::N + e)];
+    const float2 y = res[P::swz(c * P::N + e) ^ tile_xor<LOG>(c)];
     const long long off = ((long long)e << mlog) + col0 + c;
     if constexpr (FIRST) {
       dst[off] = cmul(y, __ldg(step + off));
     } else {
-      dst[off] = make_float2(__fmul_rn(y.x, scale),
-                             __fmul_rn(__fmul_rn(y.y, sgn), scale));
+      const float2 z = make_float2(__fmul_rn(y.x, scale),
+                                   __fmul_rn(__fmul_rn(y.y, sgn), scale));
+      if constexpr (EDGE == kChirp) {
+        if (off < n) dst[off] = cmul(z, __ldg(aux + off));
+      } else {
+        dst[off] = z;
+      }
     }
   }
 }
@@ -402,12 +563,24 @@ size_t smem_bytes(int log, int rows_per_group) {
   return 2 * ((size_t)rows_per_group << log) * sizeof(float2);
 }
 
+// Shared bytes of a bluestein_rows block: two buffers, even for one pass
+// (the forward's output waits there for the inverse).
+size_t bluestein_smem_bytes(int log, int rows_per_group) {
+  return 2 * ((size_t)rows_per_group << log) * sizeof(float2);
+}
+
 template <int LOG>
 cudaError_t allow_smem_one() {
   const int rpg = kMaxThreads / threads_per_row(LOG);
-  return cudaFuncSetAttribute(fft_rows<LOG>,
+  if constexpr (LOG > values_log(LOG)) {  // fft_rows: more than one pass
+    const cudaError_t err = cudaFuncSetAttribute(
+        fft_rows<LOG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem_bytes(LOG, rpg));
+    if (err != cudaSuccess) return err;
+  }
+  return cudaFuncSetAttribute(bluestein_rows<LOG>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem_bytes(LOG, rpg));
+                              (int)bluestein_smem_bytes(LOG, rpg));
 }
 
 // Shared bytes of a four-step block over lines of 2^log: two buffers of
@@ -416,18 +589,39 @@ size_t tile_smem_bytes(int log) {
   return 2 * ((size_t)1 << (tile_log(log) + log)) * sizeof(float2);
 }
 
-template <int LOG, bool FIRST>
+template <int LOG, bool FIRST, int EDGE>
 cudaError_t allow_smem_tile() {
-  return cudaFuncSetAttribute(fft_four_step<LOG, FIRST>,
+  return cudaFuncSetAttribute(fft_four_step<LOG, FIRST, EDGE>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)tile_smem_bytes(LOG));
 }
 
+// Every four-step instance: pass 1 over lines of 2^7 to 2^11 (plain, and
+// Bluestein's two loads), pass 2 over lines of 2^7 to 2^10 (plain, and
+// Bluestein's store).
+template <int LOG>
+cudaError_t allow_smem_tiles() {
+  const cudaError_t errs[] = {allow_smem_tile<LOG, true, kPlain>(),
+                              allow_smem_tile<LOG, true, kChirp>(),
+                              allow_smem_tile<LOG, true, kSpectrum>()};
+  for (const cudaError_t e : errs) {
+    if (e != cudaSuccess) return e;
+  }
+  if constexpr (LOG <= 10) {
+    const cudaError_t e2[] = {allow_smem_tile<LOG, false, kPlain>(),
+                              allow_smem_tile<LOG, false, kChirp>()};
+    for (const cudaError_t e : e2) {
+      if (e != cudaSuccess) return e;
+    }
+  }
+  return cudaSuccess;
+}
+
 // The opt-in above 48 KB for every N of more than one pass (a block of 512
-// threads holds up to 8192 values, two buffers of them take 128 KB), at
-// the most any rows_per_group the wrapper gives, and for the four-step
-// passes (up to 128 KB over 8 lines of 1024 or 4 of 2048), once per
-// device.
+// threads holds up to 8192 values, two buffers of them take 128 KB), and
+// for every bluestein_rows instance (64 KB at 512 rows of 8), at the most
+// any rows_per_group the wrapper gives, and for the four-step passes (up
+// to 128 KB over 8 lines of 1024 or 4 of 2048), once per device.
 cudaError_t allow_smem() {
   static std::atomic<int> allowed[kMaxDevices];
   int dev = 0;
@@ -436,15 +630,12 @@ cudaError_t allow_smem() {
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (allowed[dev].load(std::memory_order_acquire)) return cudaSuccess;
   const cudaError_t errs[] = {
-      allow_smem_one<4>(),  allow_smem_one<5>(),  allow_smem_one<6>(),
-      allow_smem_one<7>(),  allow_smem_one<8>(),  allow_smem_one<9>(),
-      allow_smem_one<10>(), allow_smem_one<11>(), allow_smem_one<12>(),
-      allow_smem_one<13>(),
-      allow_smem_tile<7, true>(),  allow_smem_tile<7, false>(),
-      allow_smem_tile<8, true>(),  allow_smem_tile<8, false>(),
-      allow_smem_tile<9, true>(),  allow_smem_tile<9, false>(),
-      allow_smem_tile<10, true>(), allow_smem_tile<10, false>(),
-      allow_smem_tile<11, true>()};
+      allow_smem_one<3>(),   allow_smem_one<4>(),  allow_smem_one<5>(),
+      allow_smem_one<6>(),   allow_smem_one<7>(),  allow_smem_one<8>(),
+      allow_smem_one<9>(),   allow_smem_one<10>(), allow_smem_one<11>(),
+      allow_smem_one<12>(),  allow_smem_one<13>(), allow_smem_tiles<7>(),
+      allow_smem_tiles<8>(), allow_smem_tiles<9>(), allow_smem_tiles<10>(),
+      allow_smem_tiles<11>()};
   for (const cudaError_t e : errs) {
     if (e != cudaSuccess) return e;
   }
@@ -460,38 +651,88 @@ void launch(const float2* in, float2* out, const float2* tw, long long rows,
       in, out, tw, rows, rpg, gpb, sgn, scale);
 }
 
-template <int LOG, bool FIRST>
-void launch_tile(const float2* in, float2* out, const float2* tw,
-                 const float2* step, long long grid, int mlog, int smem,
-                 float sgn, float scale, cudaStream_t stream) {
-  fft_four_step<LOG, FIRST><<<(unsigned)grid,
-                              (1 << tile_log(LOG)) * Plan<LOG>::T, smem,
-                              stream>>>(in, out, tw, step, mlog, sgn, scale);
+// One four-step pass's arguments besides the instance.
+struct TileArgs {
+  const float2* in;
+  float2* out;
+  const float2* tw;
+  const float2* step;
+  const float2* aux;
+  long long in_stride, out_stride, grid;
+  int n, mlog, smem;
+  float sgn, scale;
+};
+
+template <int LOG, bool FIRST, int EDGE>
+void launch_tile(const TileArgs& a, cudaStream_t stream) {
+  fft_four_step<LOG, FIRST, EDGE><<<(unsigned)a.grid,
+                                    (1 << tile_log(LOG)) * Plan<LOG>::T,
+                                    a.smem, stream>>>(
+      a.in, a.out, a.tw, a.step, a.aux, a.in_stride, a.out_stride, a.n,
+      a.mlog, a.sgn, a.scale);
 }
 
-// One four-step pass over lines of 2^log, mlog lines a row.
-void launch_four_step_pass(bool first, int log, const float2* in,
-                           float2* out, const float2* tw, const float2* step,
-                           long long grid, int mlog, int smem, float sgn,
-                           float scale, cudaStream_t st) {
-  switch (log * 2 + (first ? 1 : 0)) {
-#define RIMMS_FFT4_CASE(L)                                                  \
-  case 2 * L + 1:                                                           \
-    launch_tile<L, true>(in, out, tw, step, grid, mlog, smem, sgn, scale,  \
-                         st);                                               \
-    break;                                                                  \
-  case 2 * L:                                                               \
-    launch_tile<L, false>(in, out, tw, step, grid, mlog, smem, sgn, scale, \
-                          st);                                              \
-    break;
-    RIMMS_FFT4_CASE(7) RIMMS_FFT4_CASE(8) RIMMS_FFT4_CASE(9)
-    RIMMS_FFT4_CASE(10)
-#undef RIMMS_FFT4_CASE
-    case 2 * 11 + 1:  // pass 1 of N = 2^21 (pass 2's lines are 1024 long)
-      launch_tile<11, true>(in, out, tw, step, grid, mlog, smem, sgn, scale,
-                            st);
-      break;
+template <int LOG>
+void launch_tile_edge(bool first, int edge, const TileArgs& a,
+                      cudaStream_t st) {
+  if (first) {
+    if (edge == kChirp) {
+      launch_tile<LOG, true, kChirp>(a, st);
+    } else if (edge == kSpectrum) {
+      launch_tile<LOG, true, kSpectrum>(a, st);
+    } else {
+      launch_tile<LOG, true, kPlain>(a, st);
+    }
+  } else if constexpr (LOG <= 10) {  // pass 2's lines are at most 1024
+    if (edge == kChirp) {
+      launch_tile<LOG, false, kChirp>(a, st);
+    } else {
+      launch_tile<LOG, false, kPlain>(a, st);
+    }
   }
+}
+
+// One four-step pass over lines of 2^log (7 to 11; pass 2's to 10).
+void launch_four_step_pass(bool first, int log, int edge, const TileArgs& a,
+                           cudaStream_t st) {
+  switch (log) {
+    case 7: launch_tile_edge<7>(first, edge, a, st); break;
+    case 8: launch_tile_edge<8>(first, edge, a, st); break;
+    case 9: launch_tile_edge<9>(first, edge, a, st); break;
+    case 10: launch_tile_edge<10>(first, edge, a, st); break;
+    case 11: launch_tile_edge<11>(first, edge, a, st); break;
+  }
+}
+
+// Both passes of the four-step FFT of rows of 2^log (14 to 21): in ->
+// work (pass 1, edge1) -> out (pass 2, edge2), rows in_stride and
+// out_stride apart, the workspace's 2^log.  Returns the first CUDA error.
+cudaError_t four_step(int log, long long rows, const float2* in,
+                      long long in_stride, float2* work, float2* out,
+                      long long out_stride, const float2* tw1,
+                      const float2* tw2, const float2* step, int edge1,
+                      int edge2, const float2* aux1, const float2* aux2,
+                      int n, float sgn, float scale, cudaStream_t st) {
+  const int l1 = log - log / 2, l2 = log / 2;
+  const long long m = 1LL << log;
+  const TileArgs pass1{in,  work, tw1, step, aux1, in_stride, m,
+                       rows << (l2 - tile_log(l1)),   n, l2,
+                       (int)tile_smem_bytes(l1), sgn, 1.0f};
+  launch_four_step_pass(true, l1, edge1, pass1, st);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const TileArgs pass2{work, out, tw2, nullptr, aux2, m, out_stride,
+                       rows << (l1 - tile_log(l2)),      n, l1,
+                       (int)tile_smem_bytes(l2), sgn, scale};
+  launch_four_step_pass(false, l2, edge2, pass2, st);
+  return cudaGetLastError();
+}
+
+// log2 of n, or 31 if n is not a power of two below 2^31
+int exact_log(int n) {
+  int log = 0;
+  while (log < 31 && (1 << log) < n) ++log;
+  return (1 << log) == n ? log : 31;
 }
 
 }  // namespace
@@ -520,9 +761,8 @@ extern "C" int rimms_fft_c64(const void* in, void* out, const FftLaunch* p,
   const int n = p->n, threads = p->threads, rpg = p->rows_per_group;
   const int gpb = p->groups_per_block, smem = p->smem;
   const long long rows = p->rows, grid = p->grid;
-  int log = 0;
-  while (log < 31 && (1 << log) < n) ++log;
-  if (n < 2 || log > kMaxLog || (1 << log) != n || rows < 0 || rpg < 1 ||
+  const int log = exact_log(n);
+  if (n < 2 || log > kMaxLog || rows < 0 || rpg < 1 ||
       gpb < 1 || grid < 0 || grid > 0x7fffffffLL ||
       threads != rpg * threads_per_row(log) || threads > kMaxThreads ||
       (size_t)smem != smem_bytes(log, rpg) || grid * gpb * rpg < rows) {
@@ -578,36 +818,122 @@ extern "C" int rimms_fft4_c64(const void* in, void* out, void* work,
                               const Fft4Launch* p, void* stream) {
   const int n = p->n;
   const long long rows = p->rows;
-  int log = 0;
-  while (log < 31 && (1 << log) < n) ++log;
+  const int log = exact_log(n);
   const int l1 = log - log / 2, l2 = log / 2;
-  if ((1 << log) != n || log <= kMaxLog || log > kMaxLog4 || rows < 0 ||
+  if (log <= kMaxLog || log > kMaxLog4 || rows < 0 ||
       p->twiddles1 == nullptr || p->twiddles2 == nullptr ||
-      p->step == nullptr || work == nullptr) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const long long grid1 = rows << (l2 - tile_log(l1));
-  const long long grid2 = rows << (l1 - tile_log(l2));
-  if (grid1 > 0x7fffffffLL || grid2 > 0x7fffffffLL) {
+      p->step == nullptr || work == nullptr ||
+      (rows << (l2 - tile_log(l1))) > 0x7fffffffLL ||
+      (rows << (l1 - tile_log(l2))) > 0x7fffffffLL) {
     return (int)cudaErrorInvalidValue;
   }
   if (rows == 0) return 0;
-  const int smem1 = (int)tile_smem_bytes(l1), smem2 = (int)tile_smem_bytes(l2);
-  if (smem1 > 48 * 1024 || smem2 > 48 * 1024) {
-    const cudaError_t err = allow_smem();
-    if (err != cudaSuccess) return (int)err;
-  }
+  const cudaError_t err = allow_smem();
+  if (err != cudaSuccess) return (int)err;
   const float sgn = p->inverse ? -1.0f : 1.0f;
   const float scale = p->inverse ? 1.0f / (float)n : 1.0f;
+  return (int)four_step(log, rows, (const float2*)in, n, (float2*)work,
+                        (float2*)out, n, (const float2*)p->twiddles1,
+                        (const float2*)p->twiddles2, (const float2*)p->step,
+                        kPlain, kPlain, nullptr, nullptr, n, sgn, scale,
+                        (cudaStream_t)stream);
+}
+
+// One Bluestein call's tables and geometry, built once per (device, n,
+// rows, block_rows, inverse) by the wrapper
+// (repro_torch.kernels.fft.bluestein._launch_args).  M = m, the inner
+// length: up to 8192 one launch of bluestein_rows with launch_plan's
+// geometry of M (grid, threads, rows_per_group, groups_per_block, smem =
+// bluestein_smem_bytes), above four four-step launches (geometry derived
+// here, those fields 0).
+struct BluesteinLaunch {
+  const void* twiddles1;  // M's pass table, or M1's above 8192
+  const void* twiddles2;  // M2's pass table above 8192, else null
+  const void* step;       // M's step twiddles above 8192, else null
+  const void* chirp;      // w_k, k < n (bluestein.chirp)
+  const void* spectrum;   // the filter's spectrum, M values
+  long long rows;
+  long long grid;
+  int n;
+  int m;
+  int threads;
+  int rows_per_group;
+  int groups_per_block;
+  int smem;
+};
+
+// in, out: p->rows x p->n complex64, distinct; in 8-byte aligned, at any
+// element.  work: 2 p->rows x p->m complex64 above M = 8192 (the
+// four-step's workspace, then the forward transform), unused below.  n
+// from 3 to 2^20, m the least power of two >= 2n - 1.  Launches on
+// `stream`; returns the first CUDA error (0 on success), or
+// cudaErrorInvalidValue for arguments it does not take.
+extern "C" int rimms_bluestein_c64(const void* in, void* out, void* work,
+                                   const BluesteinLaunch* p, void* stream) {
+  const int n = p->n, m = p->m;
+  const long long rows = p->rows;
+  const int log = exact_log(m);
+  if (n < 3 || log > kMaxLog4 || (long long)m < 2LL * n - 1 ||
+      m / 2 >= 2 * n - 1 || rows < 0 || p->twiddles1 == nullptr ||
+      p->chirp == nullptr || p->spectrum == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const auto* x = (const float2*)in;
+  auto* y = (float2*)out;
+  const auto* chirp = (const float2*)p->chirp;
+  const auto* spec = (const float2*)p->spectrum;
+  const auto* tw1 = (const float2*)p->twiddles1;
+  const float scale = 1.0f / (float)m;
   const auto st = (cudaStream_t)stream;
-  auto* ws = (float2*)work;
-  launch_four_step_pass(true, l1, (const float2*)in, ws,
-                        (const float2*)p->twiddles1, (const float2*)p->step,
-                        grid1, l2, smem1, sgn, 1.0f, st);
-  const cudaError_t err = cudaGetLastError();
+  if (log <= kMaxLog) {
+    const int threads = p->threads, rpg = p->rows_per_group;
+    const int gpb = p->groups_per_block, smem = p->smem;
+    const long long grid = p->grid;
+    if (rpg < 1 || gpb < 1 || grid < 0 || grid > 0x7fffffffLL ||
+        threads != rpg * threads_per_row(log) || threads > kMaxThreads ||
+        (size_t)smem != bluestein_smem_bytes(log, rpg) ||
+        grid * gpb * rpg < rows) {
+      return (int)cudaErrorInvalidValue;
+    }
+    if (rows == 0) return 0;
+    if (smem > 48 * 1024) {
+      const cudaError_t err = allow_smem();
+      if (err != cudaSuccess) return (int)err;
+    }
+    switch (log) {
+#define RIMMS_BLUESTEIN_CASE(L)                                            \
+  case L:                                                                  \
+    bluestein_rows<L><<<(unsigned)grid, threads, smem, st>>>(              \
+        x, y, tw1, chirp, spec, rows, n, rpg, gpb, scale);                 \
+    break;
+      RIMMS_BLUESTEIN_CASE(3) RIMMS_BLUESTEIN_CASE(4) RIMMS_BLUESTEIN_CASE(5)
+      RIMMS_BLUESTEIN_CASE(6) RIMMS_BLUESTEIN_CASE(7) RIMMS_BLUESTEIN_CASE(8)
+      RIMMS_BLUESTEIN_CASE(9) RIMMS_BLUESTEIN_CASE(10)
+      RIMMS_BLUESTEIN_CASE(11) RIMMS_BLUESTEIN_CASE(12)
+      RIMMS_BLUESTEIN_CASE(13)
+#undef RIMMS_BLUESTEIN_CASE
+    }
+    return (int)cudaGetLastError();
+  }
+  const int l1 = log - log / 2, l2 = log / 2;
+  if (p->twiddles2 == nullptr || p->step == nullptr || work == nullptr ||
+      (rows << (l2 - tile_log(l1))) > 0x7fffffffLL ||
+      (rows << (l1 - tile_log(l2))) > 0x7fffffffLL) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (rows == 0) return 0;
+  cudaError_t err = allow_smem();
   if (err != cudaSuccess) return (int)err;
-  launch_four_step_pass(false, l2, ws, (float2*)out,
-                        (const float2*)p->twiddles2, nullptr, grid2, l1,
-                        smem2, sgn, scale, st);
-  return (int)cudaGetLastError();
+  const auto* tw2 = (const float2*)p->twiddles2;
+  const auto* step = (const float2*)p->step;
+  auto* ws = (float2*)work;             // the four-step's workspace
+  float2* fwd = ws + rows * (long long)m;  // the forward transform
+  // forward: x w (zeros past n) -> ws -> fwd, as the plain FFT's passes
+  err = four_step(log, rows, x, n, ws, fwd, m, tw1, tw2, step, kChirp,
+                  kPlain, chirp, nullptr, n, 1.0f, 1.0f, st);
+  if (err != cudaSuccess) return (int)err;
+  // inverse: fwd times the spectrum, conjugated -> ws -> out, conjugated,
+  // scaled, times w, the first n only
+  return (int)four_step(log, rows, fwd, m, ws, y, n, tw1, tw2, step,
+                        kSpectrum, kChirp, spec, chirp, n, -1.0f, scale, st);
 }

@@ -117,6 +117,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     f32 = ctypes.c_float
     lib.rimms_fft_c64.argtypes = [p, p, p, p]
     lib.rimms_fft4_c64.argtypes = [p, p, p, p, p]
+    lib.rimms_bluestein_c64.argtypes = [p, p, p, p, p]
     lib.rimms_zip_c64.argtypes = [p, p, p, i64, i32, p]
     lib.rimms_rg_lru_f32.argtypes = [p] * 6 + [i32] * 5 + [p]
     lib.rimms_rg_lru_bwd_f32.argtypes = [p] * 9 + [i32] * 5 + [p]
@@ -124,7 +125,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.rimms_mlstm_f32.argtypes = [p] * 12 + [i32] * 5 + [f32, p]
     lib.rimms_mlstm_bwd_f32.argtypes = [p] * 18 + [i32] * 5 + [f32, p]
     lib.rimms_paged_attention.argtypes = [p] * 8 + [i32] * 10 + [f32, p]
-    for fn in (lib.rimms_fft_c64, lib.rimms_fft4_c64, lib.rimms_zip_c64,
+    for fn in (lib.rimms_fft_c64, lib.rimms_fft4_c64,
+               lib.rimms_bluestein_c64, lib.rimms_zip_c64,
                lib.rimms_rg_lru_f32, lib.rimms_rg_lru_bwd_f32,
                lib.rimms_flash_attention, lib.rimms_mlstm_f32,
                lib.rimms_mlstm_bwd_f32, lib.rimms_paged_attention):

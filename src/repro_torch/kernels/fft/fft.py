@@ -12,7 +12,8 @@ Two versions of one function, rows of complex64 along the last axis:
   N = N1 N2 (:func:`split`), N1-point FFTs down the columns times the
   step twiddles (:func:`step_twiddles`) into a workspace, then N2-point
   FFTs along its rows into natural order (the geometry is N's alone, and
-  ``csrc/fft.cu`` derives it);
+  ``csrc/fft.cu`` derives it; a block's lines sit in shared memory at
+  :func:`tile_slot`, which keeps its copies free of bank conflicts);
 * :func:`fft_plain` is the radix-2 Stockham recurrence in torch ops
   (slice, butterfly, ``cat``) — what a CPU tensor runs, and what the
   kernel is held against on the card.
@@ -20,8 +21,9 @@ Two versions of one function, rows of complex64 along the last axis:
 Both produce natural order with no bit reversal, and both compute the
 inverse with a 1/N scale, which equals ``conj(fft(conj x))/N``.
 Supports power-of-two N from 2 to 2**21 (:data:`MAX_POW2`); any other
-length up to :data:`MAX_N` goes through :mod:`.bluestein`, whose inner
-transforms reach 2**21.
+length up to :data:`MAX_N` goes through :mod:`.bluestein` (on the card
+one call of ``csrc/fft.cu``'s Bluestein entry), whose inner transforms
+reach 2**21.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ import torch
 from .._build import check, launch, library
 
 __all__ = ["BLOCK_ROWS", "MAX_N", "MAX_POW2", "TABLE_N", "TILE", "tile",
-           "BLOCK_THREADS",
+           "swizzle", "tile_slot", "BLOCK_THREADS",
            "MAX_THREADS", "values", "radices", "launch_plan",
            "pass_twiddles", "twiddle_tables", "split", "step_twiddles",
            "step_table", "fft_kernel", "fft_plain", "launches"]
@@ -66,6 +68,27 @@ def tile(length: int) -> int:
     where 8 would need 1024 threads and 256 KB (``csrc/fft.cu``
     ``tile_log``)."""
     return TILE if length <= 1024 else TILE // 2
+
+
+def swizzle(g: int, n: int) -> int:
+    """Where shared index ``g`` of a block's rows of ``n`` is stored
+    (``csrc/fft.cu`` ``Plan::swz``): g ^ ((g / V) mod 16), V =
+    :func:`values` (n), which keeps every exchange between passes free of
+    bank conflicts."""
+    vlog = values(n).bit_length() - 1
+    return g ^ ((g >> vlog) & 15)
+
+
+def tile_slot(c: int, e: int, length: int) -> int:
+    """Where element ``e`` of line ``c`` of a four-step block over lines
+    of ``length`` is stored (``csrc/fft.cu`` ``tile_xor``): the rows'
+    :func:`swizzle` of c length + e with c 16 / :func:`tile` (length)
+    XORed into its bank bits.  A strided tile copy's half-warp touches
+    16 / TILE elements of each of its TILE lines: the rows' swizzle alone
+    puts a line's element at one bank pair whatever the line, the XOR
+    spreads the lines over distinct ones."""
+    return swizzle(c * length + e, length) ^ ((c * (16 // tile(length)))
+                                              & 15)
 
 
 #: threads a block of short rows fills at least (rows allowing), and the

@@ -14,7 +14,8 @@ def fft(x: torch.Tensor, forward: bool = True, *,
     """FFT (or, with ``forward=False``, inverse FFT) along the last axis,
     of any length N from 2 to :data:`MAX_N` (and 2**21): a power of two
     in one call of the FFT kernel, any other length by Bluestein's
-    algorithm over the FFT and ZIP kernels (:mod:`.bluestein`).
+    algorithm (:mod:`.bluestein`), on the card one call of the FFT
+    kernel's Bluestein entry.
 
     A CUDA tensor goes to the hand-written kernels; a CPU tensor to their
     plain torch versions; anything else raises.  ``block_rows`` tunes the

@@ -195,9 +195,11 @@ def test_main_path_runs_on_kernels(cuda):
 @pytest.mark.parametrize("n", [3, 12, 1000, 1536, 4095, 12289, 100000,
                                524287, (1 << 20) - 1])
 def test_fft_any_length_through_bluestein(cuda, n):
-    """A length that is not a power of two: two FFT and three ZIP
-    launches a call, against the same composition over the plain versions
-    and numpy's complex128 FFT; bit-identical across block_rows."""
+    """A length that is not a power of two: one fused launch a call (one
+    FFT count, no ZIP count), bit-equal to the composition of the FFT and
+    ZIP kernels it replaces, within tolerance of the composition over the
+    plain versions and of numpy's complex128 FFT; bit-identical across
+    block_rows."""
     from repro_torch.kernels.fft import bluestein as BL
 
     gen = torch.Generator(device=cuda).manual_seed(n)
@@ -206,7 +208,11 @@ def test_fft_any_length_through_bluestein(cuda, n):
     for fwd in (True, False):
         counts = (F.launches, Z.launches)
         got = fft_ops.fft(x, fwd)
-        assert (F.launches, Z.launches) == (counts[0] + 2, counts[1] + 3)
+        assert (F.launches, Z.launches) == (counts[0] + 1, counts[1])
+        composed = BL.bluestein(
+            x, inverse=not fwd,
+            fft=lambda a, inv: F.fft_kernel(a, inverse=inv), mul=Z.zip_kernel)
+        assert torch.equal(got, composed)
         s = 1 if fwd else n
         want = BL.bluestein_plain(x, inverse=not fwd)
         # the power-of-two rtol and atol of its inner length (3e-3)
@@ -217,6 +223,21 @@ def test_fft_any_length_through_bluestein(cuda, n):
         assert float(np.abs(got.cpu().numpy() * s - ref).max()) <= tol
         for br in (32, 128):
             assert torch.equal(fft_ops.fft(x, fwd, block_rows=br), got)
+
+
+@pytest.mark.parametrize("n", [12, 1000, 4095, 12289, 100000])
+def test_bluestein_row_bits_do_not_depend_on_other_rows(cuda, n):
+    """A row's output through the fused route has the same bits alone, in
+    a batch of 3 and in a batch of 64, at any block_rows."""
+    gen = torch.Generator(device=cuda).manual_seed(n + 1)
+    x = torch.randn(64, n, dtype=torch.complex64, device=cuda, generator=gen)
+    for fwd in (True, False):
+        batch = fft_ops.fft(x, fwd)
+        three = fft_ops.fft(x[5:8].contiguous(), fwd, block_rows=32)
+        assert torch.equal(three, batch[5:8])
+        for i in (0, 6, 63):
+            alone = fft_ops.fft(x[i:i + 1].contiguous(), fwd)
+            assert torch.equal(alone[0], batch[i])
 
 
 #: tests/test_kernels.py's sweep in both dtypes, the ragged S = 300

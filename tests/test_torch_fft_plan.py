@@ -2,8 +2,10 @@
 
 The CUDA kernels themselves run only on the card (``tests/test_torch_cuda.py``
 and ``chip_smoke.py``); what the wrappers compute in Python before a
-launch -- the twiddle table, the pass plan, the launch geometry -- and the
-launch helper's device guard are checked here.
+launch -- the twiddle table, the pass plan, the launch geometry, the
+shared-memory layouts and their banks, the fused Bluestein route's launch
+structure and index maps -- and the launch helper's device guard are
+checked here.
 """
 
 import math
@@ -165,30 +167,34 @@ def test_launch_args_carry_the_plan(n, inverse):
     assert F._launch_args(-1, n, 1024, 8, inverse)[1] is args
 
 
-def _exchange_conflicts(n, rpg):
+def _degree(addrs):
+    """Worst bank-conflict degree of one warp's 8-byte shared accesses:
+    within a half-warp, distinct addresses that share a bank pair (index
+    mod 16)."""
+    out = 1
+    for half in (addrs[:16], addrs[16:]):
+        banks = {}
+        for a in half:
+            banks.setdefault(a % 16, set()).add(a)
+        out = max([out] + [len(v) for v in banks.values()])
+    return out
+
+
+def _exchange_conflicts(n, rpg, slot=None):
     """Worst bank-conflict degree of the shared-memory exchanges of
     ``csrc/fft.cu`` for a block of ``rpg`` rows of ``n``: pass q of radix R
     over sub-length Ns writes y[(j / Ns) Ns R + j mod Ns + r Ns] and the
-    next pass reads x[j + r n / R]; shared index g of the block's rows is
-    stored at g ^ ((g / V) mod 16) (V values a thread), and 8-byte
-    accesses conflict within a half-warp when two distinct addresses share
-    a bank pair (index mod 16)."""
+    next pass reads x[j + r n / R]; element e of row ``row`` is stored at
+    ``slot(row, e)``, by default the rows' swizzle of row n + e
+    (``F.swizzle``: g ^ ((g / V) mod 16), V values a thread)."""
+    if slot is None:
+        def slot(row, e):
+            return F.swizzle(row * n + e, n)
     r_all = F.radices(n)
     values = F.values(n)
-    vlog = values.bit_length() - 1
     per_row = n // values
     threads = rpg * per_row
     worst, ns = 1, 1
-
-    def degree(addrs):
-        out = 1
-        for half in (addrs[:16], addrs[16:]):
-            banks = {}
-            for a in half:
-                banks.setdefault(a % 16, set()).add(a)
-            out = max([out] + [len(v) for v in banks.values()])
-        return out
-
     for q, radix in enumerate(r_all):
         for i in range(values // radix):
             for r in range(radix):
@@ -197,15 +203,14 @@ def _exchange_conflicts(n, rpg):
                     for tid in range(w0, min(w0 + 32, threads)):
                         row, t = divmod(tid, per_row)
                         j = t + i * per_row
-                        src = row * n + j + r * (n // radix)
-                        dst = row * n + (j // ns) * ns * radix + j % ns \
-                            + r * ns
-                        reads.append(src ^ ((src >> vlog) & 15))
-                        writes.append(dst ^ ((dst >> vlog) & 15))
+                        src = j + r * (n // radix)
+                        dst = (j // ns) * ns * radix + j % ns + r * ns
+                        reads.append(slot(row, src))
+                        writes.append(slot(row, dst))
                     if q > 0:
-                        worst = max(worst, degree(reads))
+                        worst = max(worst, _degree(reads))
                     if q < len(r_all) - 1:
-                        worst = max(worst, degree(writes))
+                        worst = max(worst, _degree(writes))
         ns *= radix
     return worst
 
@@ -436,11 +441,81 @@ def test_four_step_tiles_cover_a_row_once_in_whole_sectors(n, first, load):
             assert len(sectors) * 4 == len(addrs)  # no sector half used
 
 
+def _tile_layout(length):
+    """Where a four-step block stores element e of its line c."""
+    def slot(c, e):
+        return F.tile_slot(c, e, length)
+    return slot
+
+
 @pytest.mark.parametrize("length", [128, 256, 512, 1024])
 def test_four_step_exchange_has_no_bank_conflicts(length):
     """A four-step block runs TILE lines side by side through the same
-    register passes and swizzled exchange as TILE rows of fft_rows."""
-    assert _exchange_conflicts(length, F.TILE) == 1
+    register passes as TILE rows of fft_rows, its lines at
+    ``F.tile_slot``: a line's XOR moves whole half-warps (a line has at
+    least 16 threads), so the exchange stays free of conflicts."""
+    assert _exchange_conflicts(length, F.TILE,
+                               slot=_tile_layout(length)) == 1
+
+
+def _tile_copy_conflicts(length, first, load, slot):
+    """Worst bank-conflict degree of a four-step block's copies between
+    device and shared memory (csrc/fft.cu fft_four_step) over lines of
+    ``length``: value k of thread tid is idx = tid + k THREADS; pass 1's
+    loads and both passes' stores take line c = idx mod TILE, element e =
+    idx / TILE (a run of TILE adjacent columns or outputs in device
+    memory), pass 2's loads line c = idx / length, element e = idx mod
+    length (a workspace row); element e of line c sits at ``slot(c, e)``."""
+    tile = F.tile(length)
+    threads = tile * length // F.values(length)
+    worst = 1
+    for k in range(F.values(length)):
+        for w0 in range(0, threads, 32):
+            addrs = []
+            for tid in range(w0, w0 + 32):
+                idx = tid + k * threads
+                if load and not first:
+                    c, e = divmod(idx, length)
+                else:
+                    e, c = divmod(idx, tile)
+                addrs.append(slot(c, e))
+            worst = max(worst, _degree(addrs))
+    return worst
+
+
+@pytest.mark.parametrize("length", [128, 256, 512, 1024, 2048])
+@pytest.mark.parametrize("first", [True, False], ids=["pass1", "pass2"])
+@pytest.mark.parametrize("load", [True, False], ids=["load", "store"])
+def test_four_step_tile_copies_have_no_bank_conflicts(length, first, load):
+    """Every half-warp of every tile copy, global to shared and shared to
+    global, lands in 16 distinct bank pairs (TILE 8 up to lines of 1024,
+    4 at 2048)."""
+    assert _tile_copy_conflicts(length, first, load,
+                                _tile_layout(length)) == 1
+
+
+@pytest.mark.parametrize("length", [128, 256, 512, 1024, 2048])
+def test_rows_swizzle_alone_conflicts_on_the_strided_tile_copies(length):
+    """The walk sees the conflicts the line XOR removes: with the rows'
+    swizzle alone a strided copy's half-warp puts all TILE lines' element
+    at one bank pair (TILE-way), a workspace row's contiguous copy has
+    none."""
+    def rows_only(c, e):
+        return F.swizzle(c * length + e, length)
+
+    assert _tile_copy_conflicts(length, True, True,
+                                rows_only) == F.tile(length)
+    assert _tile_copy_conflicts(length, False, True, rows_only) == 1
+
+
+def test_tile_slot_is_a_permutation_of_the_tile():
+    """The tile layout stores each of a block's TILE x length values at
+    its own place, inside the block's buffer."""
+    for length in (128, 256, 512, 1024, 2048):
+        tile = F.tile(length)
+        slots = {F.tile_slot(c, e, length)
+                 for c in range(tile) for e in range(length)}
+        assert slots == set(range(tile * length))
 
 
 def _four_step_model(x, inverse):
@@ -536,7 +611,8 @@ def test_four_step_tiles_at_2_21_cover_a_row_in_whole_sectors(first, load):
 
 
 def test_four_step_exchange_of_four_lines_of_2048_has_no_conflicts():
-    assert _exchange_conflicts(2048, F.tile(2048)) == 1
+    assert _exchange_conflicts(2048, F.tile(2048),
+                               slot=_tile_layout(2048)) == 1
 
 
 def test_launch4_args_at_2_21():
@@ -544,3 +620,170 @@ def test_launch4_args_at_2_21():
     ptrs = F.twiddle_tables("cpu")[1]
     assert (args.twiddles1, args.twiddles2) == (ptrs[11], ptrs[10])
     assert step.shape == (F.MAX_POW2,) and args.n == F.MAX_POW2
+
+
+# ------------------------------------------- Bluestein in one C entry
+#: lengths past one launch of the FFT that Bluestein takes in one launch
+#: (M <= 8192) and in four four-step launches (M above)
+BLUESTEIN_ONE = (3, 12, 1000, 1536, 3000, 4095)
+BLUESTEIN_FOUR = (5000, 12289, 100000, (1 << 20) - 1)
+
+
+def _bluestein_model(x, inverse):
+    """The fused Bluestein route's index maps (csrc/fft.cu bluestein_rows
+    and fft_four_step's Bluestein edges) in numpy, each line's DFT by
+    np.fft in complex128 over the complex64 tables: the predicated load of
+    x w (zeros from N on), the forward transform, the spectrum's product
+    at each natural index and the conjugation as the inverse reads it,
+    the inverse transform, and the store of the conjugate / M times w for
+    the first N elements only."""
+    from repro_torch.kernels.fft import bluestein as BL
+
+    rows, n = x.shape
+    m = BL.inner_length(n)
+    w, spec = (t.numpy().astype(np.complex128)
+               for t in BL.tables(n, inverse, "cpu"))
+    out = np.full((rows, n), np.nan, np.complex128)
+    for row in range(rows):
+        if m <= F.TABLE_N:
+            # thread t's first pass holds elements t + r M / V, r < V
+            v = F.values(m)
+            t = np.arange(m // v)[:, None]
+            at = (t + np.arange(v)[None, :] * (m // v)).ravel()
+            assert sorted(at) == list(range(m))
+            a = np.zeros(m, np.complex128)
+            keep = at < n
+            a[at[keep]] = x[row, at[keep]] * w[at[keep]]
+            y = np.fft.fft(a)
+            b = np.conj(y[at] * spec[at])  # the inverse's first read
+            z = np.empty(m, np.complex128)
+            z[at] = b
+            z = np.fft.fft(z)
+            # the last pass of radix R: thread t's butterfly i stores
+            # j + r M / R, j = t + i T < M / R
+            radix = F.radices(m)[-1]
+            j = np.arange(m // radix)[:, None]
+            put = (j + np.arange(radix)[None, :] * (m // radix)).ravel()
+            assert sorted(put) == list(range(m))
+            put = put[put < n]
+            out[row, put] = np.conj(z[put]) / m * w[put]
+            continue
+        m1, m2 = F.split(m)
+        step = F.step_twiddles(m).astype(np.complex128)
+
+        def four_step(load, store):
+            work = np.empty(m, np.complex128)
+            for col in range(m2):  # pass 1: column col, element e at e M2
+                at = np.arange(m1) * m2 + col
+                work[at] = np.fft.fft(load(at)) * step[at]
+            for k1 in range(m1):  # pass 2: workspace row k1
+                store(k1 + m1 * np.arange(m2),
+                      np.fft.fft(work[k1 * m2:(k1 + 1) * m2]))
+
+        def load_chirp(at):
+            a = np.zeros(len(at), np.complex128)
+            keep = at < n
+            a[keep] = x[row, at[keep]] * w[at[keep]]
+            return a
+
+        fwd = np.empty(m, np.complex128)
+
+        def store_fwd(at, y):
+            fwd[at] = y
+
+        def store_chirp(at, y):
+            keep = at < n
+            out[row, at[keep]] = np.conj(y[keep]) / m * w[at[keep]]
+
+        four_step(load_chirp, store_fwd)
+        four_step(lambda at: np.conj(fwd[at] * spec[at]), store_chirp)
+    assert not np.isnan(out).any()  # every element stored once at least
+    return out
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+@pytest.mark.parametrize("n", [1000, 4095, 5000, 12289])
+def test_bluestein_index_model_is_the_dft(n, inverse):
+    """The fused route's index maps compute numpy's DFT: in one launch at
+    1000 and 4095 (M 2048, 8192), in four launches at 5000 and 12289 (M
+    16384, 32768)."""
+    rng = np.random.default_rng(n)
+    x = (rng.normal(size=(2, n)) + 1j * rng.normal(size=(2, n))).astype(
+        np.complex64)
+    got = _bluestein_model(x, inverse)
+    want = np.fft.ifft(x) if inverse else np.fft.fft(x)
+    # the tables are complex64: about 2^-24 of the largest value, grown by
+    # the two transforms' sums
+    assert np.max(np.abs(got - want)) < 1e-5 * np.max(np.abs(want))
+
+
+@pytest.mark.parametrize("n", BLUESTEIN_ONE)
+@pytest.mark.parametrize("rows", ROWS)
+@pytest.mark.parametrize("block_rows", [8, 32, 128])
+def test_bluestein_one_launch_geometry_within_card_limits(n, rows,
+                                                          block_rows):
+    """Up to M = 8192 the one launch takes the FFT's launch_plan of M (so
+    block_rows keeps its meaning) with two shared buffers a group even
+    for one pass, within the card's limits and the kernel's bound."""
+    from repro_torch.kernels.fft import bluestein as BL
+
+    m = BL.inner_length(n)
+    threads, rpg, gpb, grid, smem = BL.launch_geometry(n, rows, block_rows)
+    assert (threads, rpg, gpb, grid) == F.launch_plan(m, rows,
+                                                      block_rows)[:4]
+    assert smem == 2 * rpg * m * 8 <= MAX_SMEM
+    assert 1 <= threads <= KERNEL_MAX_THREADS
+    assert grid * gpb * rpg >= rows > (grid - 1) * gpb * rpg
+    assert 1 <= grid <= MAX_GRID_X
+
+
+@pytest.mark.parametrize("n", BLUESTEIN_FOUR)
+def test_bluestein_above_8192_takes_the_four_step_geometry(n):
+    """Above M = 8192 there is no one-launch geometry: the four launches
+    take the four-step's of M, which fits the card at every row count."""
+    from repro_torch.kernels.fft import bluestein as BL
+
+    m = BL.inner_length(n)
+    assert m > F.TABLE_N and BL.launch_geometry(n, 3, 8) is None
+    for rows in ROWS:
+        for threads, grid, smem in _four_step_geometry(m, rows):
+            assert 1 <= threads <= KERNEL_MAX_THREADS
+            assert 1 <= grid <= MAX_GRID_X
+            assert smem <= MAX_SMEM
+
+
+@pytest.mark.parametrize("n", [3, 1000, 4095, 5000, 12289])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_bluestein_launch_args_carry_the_plan(n, inverse):
+    """The structure a Bluestein call hands ``rimms_bluestein_c64`` by
+    address (``BluesteinLaunch`` of csrc/fft.cu: five pointers, two int64,
+    six int32) holds the call's rows, N, M and geometry, the chirp and
+    spectrum of (N, direction), M's pass table (M1's, M2's and the step
+    table above 8192), and is built once per call shape."""
+    import ctypes
+
+    from repro_torch.kernels.fft import bluestein as BL
+
+    m = BL.inner_length(n)
+    addr, args, keep = BL._launch_args(-1, n, 3, 32, inverse)
+    assert ctypes.sizeof(args) == 80 and addr == ctypes.addressof(args)
+    w, spec = BL.tables(n, inverse, "cpu")
+    assert (args.chirp, args.spectrum) == (w.data_ptr(), spec.data_ptr())
+    assert any(t is w for t in keep) and any(t is spec for t in keep)
+    assert (args.rows, args.n, args.m) == (3, n, m)
+    table, ptrs = F.twiddle_tables("cpu")
+    assert keep[0] is table
+    geometry = (args.threads, args.rows_per_group, args.groups_per_block,
+                args.grid, args.smem)
+    if m <= F.TABLE_N:
+        assert args.twiddles1 == ptrs[m.bit_length() - 1]
+        assert args.twiddles2 is None and args.step is None
+        assert geometry == BL.launch_geometry(n, 3, 32)
+    else:
+        m1, m2 = F.split(m)
+        assert (args.twiddles1, args.twiddles2) == (
+            ptrs[m1.bit_length() - 1], ptrs[m2.bit_length() - 1])
+        step = F.step_table("cpu", m)
+        assert args.step == step.data_ptr() and any(t is step for t in keep)
+        assert geometry == (0, 0, 0, 0, 0)
+    assert BL._launch_args(-1, n, 3, 32, inverse)[1] is args

@@ -181,34 +181,108 @@ def test_bluestein_inner_length_and_filter(n):
             assert not b[n:m - n + 1].any()
 
 
-def test_bluestein_launches_and_block_rows(monkeypatch):
-    """On the card one call is two FFT launches (forward, then inverse, of
-    length M, each with the caller's block_rows) and three ZIP launches,
-    after one FFT of the filter when its table is built: stand-ins for the
-    kernels (the plain versions, counted) show it on the CPU."""
+@pytest.mark.parametrize("route", ["fused", "plain"])
+def test_bluestein_launches_and_block_rows(monkeypatch, route):
+    """fused: on the card one call is one call of the library's
+    ``rimms_bluestein_c64`` (a stand-in here, so this runs on the CPU):
+    one FFT launch count and no ZIP count, the launch structure of the
+    caller's block_rows, no workspace up to M = 8192 and two buffers of
+    rows x M above.  plain: a CPU tensor's composition is five steps over
+    the plain versions (counted stand-ins): ZIP, the FFT of length M,
+    ZIP, its inverse, ZIP."""
     from repro_torch.kernels.fft import bluestein as BL
     from repro_torch.kernels.fft import fft as F
     from repro_torch.kernels.zip import zip as Z
 
-    calls = []
-
-    def fake_fft(a, *, inverse=False, block_rows=F.BLOCK_ROWS):
-        calls.append(("fft", a.shape[-1], inverse, block_rows))
-        return F.fft_plain(a, inverse=inverse)
-
-    def fake_zip(a, b, *, block_rows=Z.BLOCK_ROWS):
-        calls.append(("zip", a.shape))
-        return Z.zip_plain(a, b)
-
-    monkeypatch.setattr(BL, "fft_kernel", fake_fft)
-    monkeypatch.setattr(BL, "zip_kernel", fake_zip)
     x = torch.from_numpy(crandn(np.random.default_rng(7), 2, 1000))
     want = BL.bluestein_plain(x, inverse=False)
-    got = BL.bluestein_kernel(x, inverse=False, block_rows=32)
-    assert calls == [("zip", (2, 1000)), ("fft", 2048, False, 32),
-                     ("zip", (2, 2048)), ("fft", 2048, True, 32),
-                     ("zip", (2, 1000))]
-    assert torch.equal(got, want)
+    calls = []
+    if route == "plain":
+        fft_plain, zip_plain = F.fft_plain, Z.zip_plain
+
+        def fake_fft(a, *, inverse=False):
+            calls.append(("fft", a.shape[-1], inverse))
+            return fft_plain(a, inverse=inverse)
+
+        def fake_zip(a, b):
+            calls.append(("zip", a.shape))
+            return zip_plain(a, b)
+
+        monkeypatch.setattr(BL, "fft_plain", fake_fft)
+        monkeypatch.setattr(BL, "zip_plain", fake_zip)
+        got = BL.bluestein_plain(x, inverse=False)
+        assert calls == [("zip", (2, 1000)), ("fft", 2048, False),
+                         ("zip", (2, 2048)), ("fft", 2048, True),
+                         ("zip", (2, 1000))]
+        assert torch.equal(got, want)
+        return
+
+    made = []
+
+    class Lib:
+        rimms_bluestein_c64 = "bluestein"
+
+    empty_like, new_empty = torch.empty_like, torch.Tensor.new_empty
+
+    def spy_empty_like(t, *a, **k):
+        made.append(empty_like(t, *a, **k))
+        return made[-1]
+
+    def spy_new_empty(t, *a, **k):
+        made.append(new_empty(t, *a, **k))
+        return made[-1]
+
+    monkeypatch.setattr(torch, "empty_like", spy_empty_like)
+    monkeypatch.setattr(torch.Tensor, "new_empty", spy_new_empty)
+    monkeypatch.setattr(BL, "library", lambda: Lib)
+    monkeypatch.setattr(BL, "launch",
+                        lambda fn, t, *a: calls.append((fn, a)) or 0)
+    for n in (1000, 5000):
+        x = torch.from_numpy(crandn(np.random.default_rng(n), 2, n))
+        BL.tables(n, False, "cpu")  # built before the counts are read
+        del calls[:], made[:]
+        counts = (F.launches, Z.launches)
+        out = BL.bluestein_kernel(x, inverse=False, block_rows=32)
+        assert (F.launches, Z.launches) == (counts[0] + 1, counts[1])
+        (fn, (src, dst, work, addr)), = calls
+        assert fn == "bluestein" and out is made[0]
+        assert (src, dst) == (x.data_ptr(), out.data_ptr())
+        assert out.shape == x.shape and out.dtype == x.dtype
+        addr32, args, _ = BL._launch_args(-1, n, 2, 32, False)
+        assert addr == addr32
+        m = BL.inner_length(n)
+        if m <= F.TABLE_N:
+            assert work is None and len(made) == 1
+            assert (args.threads, args.rows_per_group, args.groups_per_block,
+                    args.grid, args.smem) == BL.launch_geometry(n, 2, 32)
+        else:
+            assert len(made) == 2 and work == made[1].data_ptr()
+            assert made[1].shape == (4, m) and made[1].dtype == x.dtype
+
+
+def test_bluestein_kernel_raises_on_a_refused_launch(monkeypatch):
+    """A launch the library refuses raises; the call does not fall back
+    to the composition and counts nothing."""
+    from repro_torch.kernels.fft import bluestein as BL
+    from repro_torch.kernels.fft import fft as F
+    from repro_torch.kernels.zip import zip as Z
+
+    class Lib:
+        rimms_bluestein_c64 = "bluestein"
+
+    def no(*a, **k):
+        raise AssertionError("the composition ran")
+
+    monkeypatch.setattr(BL, "library", lambda: Lib)
+    monkeypatch.setattr(BL, "launch", lambda fn, t, *a: 1)
+    monkeypatch.setattr(BL, "bluestein", no)
+    monkeypatch.setattr(BL, "fft_kernel", no)
+    x = torch.from_numpy(crandn(np.random.default_rng(3), 1, 1000))
+    BL.tables(1000, True, "cpu")
+    counts = (F.launches, Z.launches)
+    with pytest.raises(RuntimeError, match="fft kernel launch failed"):
+        BL.bluestein_kernel(x, inverse=True, block_rows=8)
+    assert (F.launches, Z.launches) == counts
 
 
 # ---------------------------------------------------------------- zip ----

@@ -44,8 +44,8 @@ CHAINS = {
     "2fft-256": (lambda m, c: m.build_2fft(c, 256, seed=2), {}, 256),
     "2fzf-64": (lambda m, c: m.build_2fzf(c, 64, seed=3), {}, 64),
     "2fzf-256": (lambda m, c: m.build_2fzf(c, 256, seed=4), {}, 256),
-    # a range length that is not a power of two: Bluestein's algorithm on
-    # the port's FFT and ZIP, XLA's FFT at any length on the JAX side
+    # a range length that is not a power of two: Bluestein's algorithm in
+    # the port's FFT, XLA's FFT at any length on the JAX side
     "2fft-1000": (lambda m, c: m.build_2fft(c, 1000, seed=9), {}, 1000),
     "2fzf-1000": (lambda m, c: m.build_2fzf(c, 1000, seed=10), {}, 1000),
     "3zip-128": (lambda m, c: m.build_3zip(c, 128, seed=5), {}, 128),
